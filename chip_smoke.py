@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 Phases, one line of output each; any failure exits non-zero before the
 result lines are printed:
 
-1. device   — CUDA present and capability (9, 0); build the kernel library
-              from ``src/repro_torch/kernels/csrc`` with nvcc.
+1. device   — CUDA present and capability (9, 0); build every kernel
+              library from ``src/repro_torch/kernels/csrc`` with nvcc, one
+              nvcc per source, all started together.
 2. kernels  — the planning-scan kernel (K1) in all three gather forms against
               its plain PyTorch version on CPU copies of the same seeded
               non-dyadic inputs, bit for bit; its time at the main path's
@@ -21,6 +22,19 @@ result lines are printed:
 4. failure  — a k=8 fat-tree with a core switch killed mid-stream; the
               reroute engine's column scans run on the card; schedules and
               reroute logs identical to the ``numpy`` backend's.
+5. attention — flash attention (K2) and flash decode (K3) against their
+              plain PyTorch versions on the card, on the reference's test
+              shapes and the model's, in float32 (atol 2e-5) and bfloat16
+              (atol 2e-2); their times at the model's shapes beside the
+              plain versions', the bound and one PyTorch library call.
+6. serve    — mistral-nemo-12b at full width and depth (bf16, seeded random
+              parameters): two ``ServeEngine`` replicas behind a
+              ``BassRouter`` serve 8 requests of 512 prompt tokens and 16
+              new tokens, driven by ``launch/serve.py``'s ``drive``; K2
+              launches once per layer and prefill.  Then the kernel path
+              against the plain attention path: (a) full depth, bf16,
+              last-position prefill logits; (b) full width, 4 layers, f32,
+              16 greedy tokens identical.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -40,9 +54,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and vector float64.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, vector float64 and
+# dense bf16 tensor-core rates.
 HBM_BYTES_S = 3.35e12
 F64_FLOP_S = 34e12
+BF16_FLOP_S = 989e12
 SEED = 0
 REPORT = {}
 
@@ -66,7 +82,9 @@ def nvidia_smi() -> str:
 def phase_device():
     import torch
 
-    from repro_torch.kernels import _build
+    # Importing each kernel's module registers its source with _build.
+    from repro_torch.kernels import _build, decode_attention, flash_attention  # noqa: F401
+    from repro_torch.kernels import ts_plan_device  # noqa: F401
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke needs an H100")
@@ -76,12 +94,14 @@ def phase_device():
     if cap != (9, 0):
         raise SystemExit(f"{name} has capability {cap}, not (9, 0)")
     t0 = time.perf_counter()
-    _build.library()
+    _build.build()
+    info = _build.build_info
     log("device", name=name, capability=list(cap), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=time.perf_counter() - t0, nvcc_s=_build.build_info["build_s"],
-        library=os.path.relpath(_build.build_info["path"], HERE))
-    REPORT["ptxas"] = _build.build_info["log"]
+        build_s=time.perf_counter() - t0,
+        nvcc_s={k: v["build_s"] for k, v in info.items()},
+        libraries={k: os.path.relpath(v["path"], HERE) for k, v in info.items()})
+    REPORT["ptxas"] = {k: v["log"] for k, v in info.items()}
     return name, smi
 
 
@@ -298,10 +318,13 @@ def fleet_instance(pods: int, hosts: int, n_tasks: int):
 
 
 def _reset_counts():
-    from repro_torch.kernels import ts_plan, ts_plan_device
+    """Every kernel's launch count (and the scan's call counts) to 0."""
+    from repro_torch.kernels import decode_attention, flash_attention, ts_plan, ts_plan_device
 
     ts_plan_device.stats.reset()
     ts_plan.calls.reset()
+    flash_attention.stats.reset()
+    decode_attention.stats.reset()
 
 
 def _counts():
@@ -434,6 +457,290 @@ def phase_failure():
     return cuda
 
 
+# -- phase 5 -------------------------------------------------------------------
+
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (B, S, nq, nkv, hd): tests/test_kernels.py's FLASH_CASES and DECODE_CASES
+# (with their pos), then the model's shapes — mistral-nemo-12b's prefill of
+# a 512-token prompt and its decode over 4 slots of a 1 024-position cache.
+FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 6, 2, 64),
+                (1, 512, 4, 4, 128), (1, 128, 14, 2, 64), (1, 512, 32, 8, 128)]
+DECODE_SHAPES = [(2, 512, 4, 2, 64, 137), (1, 1024, 8, 8, 128, 1023),
+                 (2, 256, 6, 2, 64, 0), (1, 512, 16, 16, 64, 300),
+                 (4, 1024, 32, 8, 128, 600)]
+
+
+def _attn_inputs(rng, b, s, sq, nq, nkv, hd, dtype, dev):
+    """q [B, sq, nq, hd], k, v [B, s, nkv, hd]: the model's layout."""
+    import torch
+
+    mk = lambda shp: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shp).astype(np.float32)).to(dev, getattr(torch, dtype))
+    return mk((b, sq, nq, hd)), mk((b, s, nkv, hd)), mk((b, s, nkv, hd))
+
+
+def _bhsd(*ts):
+    return [t.transpose(1, 2) for t in ts]
+
+
+def phase_attention():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    cuda = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    err = {"flash_attention": 0.0, "flash_decode": 0.0}
+    fails, checked = [], 0
+    for dtype in ("float32", "bfloat16"):
+        for b, s, nq, nkv, hd in FLASH_SHAPES:
+            q, k, v = _attn_inputs(rng, b, s, s, nq, nkv, hd, dtype, cuda)
+            got = ops.flash_attention(q, k, v, causal=True)
+            want = ref.attention_ref(*_bhsd(q, k, v), causal=True).transpose(1, 2)
+            e = float((got.float() - want.float()).abs().max())
+            err["flash_attention"] = max(err["flash_attention"], e)
+            checked += 1
+            if not e <= ATTN_TOL[dtype]:
+                fails.append(f"flash_attention {dtype} {(b, s, nq, nkv, hd)}: {e}")
+        for b, s, nq, nkv, hd, pos in DECODE_SHAPES:
+            q, k, v = _attn_inputs(rng, b, s, 1, nq, nkv, hd, dtype, cuda)
+            got = ops.flash_decode(q, k, v, pos)
+            want = ref.decode_ref(*_bhsd(q, k, v), pos).transpose(1, 2)
+            e = float((got.float() - want.float()).abs().max())
+            err["flash_decode"] = max(err["flash_decode"], e)
+            checked += 1
+            if not e <= ATTN_TOL[dtype]:
+                fails.append(f"flash_decode {dtype} {(b, s, nq, nkv, hd, pos)}: {e}")
+    torch.cuda.synchronize()
+    if fails:
+        raise AssertionError(f"{len(fails)} of {checked} attention cases differ "
+                             f"from the plain version: {fails[:5]}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
+    timing = {}
+    # K2 at the model's prefill shape, bf16.
+    b, s, nq, nkv, hd = FLASH_SHAPES[-1]
+    q, k, v = _attn_inputs(rng, b, s, s, nq, nkv, hd, "bfloat16", cuda)
+    qb, kb, vb = (t.contiguous() for t in _bhsd(q, k, v))
+    elt = 2
+    nbytes = elt * (2 * b * s * nq * hd + 2 * b * s * nkv * hd)
+    flops = 4 * b * nq * hd * s * (s + 1) // 2  # causal: keys <= query
+    bound = {"bytes": nbytes / HBM_BYTES_S, "operations": flops / BF16_FLOP_S}
+    by = max(bound, key=bound.get)
+    timing["flash_attention"] = dict(
+        shape=dict(B=b, S=s, nq=nq, nkv=nkv, hd=hd, dtype="bfloat16"),
+        ms=_time_ms(lambda: ops.flash_attention(q, k, v, causal=True), flush=flush),
+        ms_l2_warm=_time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        plain_ms=_time_ms(lambda: ref.attention_ref(*_bhsd(q, k, v), causal=True), flush=flush),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True, enable_gqa=True), flush=flush),
+        library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True), [B, H, S, hd] inputs",
+        bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes, flops=flops,
+        max_abs_err=err["flash_attention"])
+    # K3 at the model's decode shape, bf16.
+    b, s, nq, nkv, hd, pos = DECODE_SHAPES[-1]
+    q, k, v = _attn_inputs(rng, b, s, 1, nq, nkv, hd, "bfloat16", cuda)
+    qb, kb, vb = (t.contiguous() for t in _bhsd(q, k, v))
+    mask = (torch.arange(s, device=cuda) <= pos).view(1, 1, 1, s)
+    nbytes = elt * (2 * b * nq * hd + 2 * b * nkv * (pos + 1) * hd)
+    flops = 4 * b * nq * (pos + 1) * hd
+    bound = {"bytes": nbytes / HBM_BYTES_S, "operations": flops / BF16_FLOP_S}
+    by = max(bound, key=bound.get)
+    timing["flash_decode"] = dict(
+        shape=dict(B=b, S=s, nq=nq, nkv=nkv, hd=hd, pos=pos, dtype="bfloat16"),
+        ms=_time_ms(lambda: ops.flash_decode(q, k, v, pos), flush=flush),
+        ms_l2_warm=_time_ms(lambda: ops.flash_decode(q, k, v, pos)),
+        plain_ms=_time_ms(lambda: ref.decode_ref(*_bhsd(q, k, v), pos), flush=flush),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, enable_gqa=True), flush=flush),
+        library="torch.nn.functional.scaled_dot_product_attention(attn_mask=keys <= pos, "
+                "enable_gqa=True), [B, H, S, hd] inputs",
+        bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes, flops=flops,
+        max_abs_err=err["flash_decode"])
+    log("attention", checked=checked, tolerance=ATTN_TOL, **timing)
+    return timing
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+SERVE = dict(arch="mistral-nemo-12b", replicas=2, slots=4, s_max=1024,
+             requests=8, prompt_len=512, max_new=16)
+# (a): last-position logits of one 512-token prefill at full depth in bf16,
+# on the kernel path and on the plain path, each held against the same
+# prefill computed in float32 throughout (the bf16 weights upcast layer by
+# layer).  The plain path rounds the scores and the probabilities to bf16,
+# as the reference's XLA path does; the kernel keeps them in float32.  A
+# fault in the kernel shows as an error of the logits' own size; so the
+# kernel path must be no farther from the float32 logits than the plain
+# path is.
+
+
+def _prefill_logits(model, params, prompt, s_max, dev):
+    import torch
+
+    with torch.no_grad():
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(prompt[None, :], device=dev).long()}, s_max)
+    del caches
+    return logits[0].float()
+
+
+def _prefill_logits_f32(cfg, params, prompt, dev):
+    """The prefill's last-position logits in float32 throughout, on the
+    plain attention path, with each layer's bf16 weights upcast as the
+    layer runs (a float32 copy of all the weights would not fit beside
+    the bf16 ones)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla")
+    model = Model(cfg32)
+
+    def up(tree):
+        return {k: up(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    with torch.no_grad():
+        x = params["embed"][torch.as_tensor(prompt[None, :], device=dev).long()].float()
+        rope = model._rope(torch.arange(x.shape[1], device=dev))
+        for li in range(cfg.n_layers):
+            lp = up(tf._index_tree(params["stack"], li))
+            x, _ = tf._apply_layer_full(lp, x, cfg32, rope, "mlp", False)
+        head = up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]})
+        return model._head(head, x[:, -1:])[0, 0]
+
+
+def _greedy(model, params, prompt, n, dev):
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(model, params, 1, 1024, device=dev)
+    req = Request(rid=0, prompt=prompt, max_new=n)
+    assert eng.admit(req)
+    while eng.active:
+        eng.tick()
+    return list(req.tokens_out)
+
+
+def phase_serve():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, ts_plan, ts_plan_device
+    from repro_torch.launch.serve import drive, make_requests
+    from repro_torch.models import count_params
+    from repro_torch.models.model import Model
+    from repro_torch.serving import BassRouter, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    ts_plan.set_backend("cuda")
+    cfg = get_config(SERVE["arch"]).with_(attn_impl="pallas", remat=False)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(model.defs())
+    names = [f"pod0/host{i}" for i in range(SERVE["replicas"])]
+    engines = {n: ServeEngine(model, params, SERVE["slots"], SERVE["s_max"], name=n,
+                              device=cuda) for n in names}
+    router = BassRouter(names)
+    reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt_len"], SERVE["max_new"], SEED)
+    assert [r.prefix_hash for r in reqs] == [r.rid % 2 for r in reqs]
+
+    # The serving path's run: counts to 0 just before it, read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = drive(engines, router, reqs, log=None)
+    torch.cuda.synchronize()
+    k1, calls = dict(ts_plan_device.stats), dict(ts_plan.calls)
+    k2, k3 = flash_attention.stats["launches"], decode_attention.stats["launches"]
+    peak = torch.cuda.max_memory_allocated()
+
+    prefills = len(out["prefill_s"])
+    tokens = sum(len(r.tokens_out) for r in reqs)
+    planner_calls = calls["wave_scan"] + calls["col_scan"] + calls["plan_scan"]
+    run = dict(
+        config=SERVE, params=n_params, init_s=init_s, seconds=out["seconds"],
+        tokens=tokens, tokens_s=tokens / out["seconds"], prefills=prefills,
+        prefill_p50_ms=float(np.percentile(out["prefill_s"], 50)) * 1e3,
+        decode_ticks=len(out["tick_s"]),
+        decode_tick_p50_ms=float(np.percentile(out["tick_s"], 50)) * 1e3,
+        max_memory_allocated=peak, k2_launches=k2, k3_launches=k3,
+        k1_launches=k1["launches"], planner_calls=calls,
+        router=dict(router.stats))
+    if not (all(r.done and len(r.tokens_out) == SERVE["max_new"] for r in reqs)
+            and prefills == SERVE["requests"]):
+        raise AssertionError(f"serve run incomplete: {run}")
+    if k2 != cfg.n_layers * prefills:
+        raise AssertionError(f"K2 launched {k2} times for {prefills} prefills of "
+                             f"{cfg.n_layers} layers")
+    if k1["launches"] != planner_calls:
+        raise AssertionError(f"K1 launched {k1['launches']} times for "
+                             f"{planner_calls} planning scans")
+
+    # (a) full depth, bf16: kernel path and plain path against float32.
+    prompt = reqs[0].prompt
+    lp = _prefill_logits(model, params, prompt, SERVE["s_max"], cuda)
+    lx = _prefill_logits(Model(cfg.with_(attn_impl="xla")), params, prompt,
+                         SERVE["s_max"], cuda)
+    l32 = _prefill_logits_f32(cfg, params, prompt, cuda)
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    check_a = dict(kernel_vs_f32=err(lp, l32), plain_vs_f32=err(lx, l32),
+                   kernel_vs_plain=err(lp, lx), max_abs_logit=float(l32.abs().max()),
+                   finite=bool(torch.isfinite(lp).all()),
+                   argmax_equal=int(lp.argmax()) == int(lx.argmax()) == int(l32.argmax()))
+    del params, engines, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (check_a["finite"] and check_a["kernel_vs_f32"] <= check_a["plain_vs_f32"]):
+        raise AssertionError(f"(a) the kernel path is farther from float32 than the "
+                             f"plain path: {check_a}")
+
+    # (b) full width, 4 layers, f32: 16 greedy tokens identical.
+    cfg4 = cfg.with_(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    params4 = Model(cfg4).init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
+    k2_before = flash_attention.stats["launches"]
+    tok_p = _greedy(Model(cfg4), params4, prompt, SERVE["max_new"], cuda)
+    tok_x = _greedy(Model(cfg4.with_(attn_impl="xla")), params4, prompt, SERVE["max_new"], cuda)
+    check_b = dict(tokens_pallas=tok_p, tokens_xla=tok_x, identical=tok_p == tok_x,
+                   k2_launches=flash_attention.stats["launches"] - k2_before)
+    del params4
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("serve", run=run, check_a=check_a, check_b=check_b)
+    if not (check_b["identical"] and len(tok_p) == SERVE["max_new"]
+            and check_b["k2_launches"] == cfg4.n_layers):
+        raise AssertionError(f"(b) greedy tokens differ: {check_b}")
+    return run
+
+
+
+_ATTENTION_KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:29"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:26"),
+}
+
+
+def _attention_entry(name, t, launches):
+    source, replaces = _ATTENTION_KERNELS[name]
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    if name == "flash_decode":
+        entry["launches_note"] = ("not on the serve path: the model's decode takes "
+                                  "the plain path, as the reference's does")
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -441,6 +748,8 @@ def main() -> int:
     timing = phase_kernels()
     main_cuda = phase_main_path()
     fail_cuda = phase_failure()
+    attn = phase_attention()
+    serve = phase_serve()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -448,6 +757,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ts_plan_device.py:424",
         "launches": main_cuda["stats"]["launches"],
         "launches_failure_path": fail_cuda["stats"]["launches"],
+        "launches_serve_path": serve["k1_launches"],
         "max_abs_err": timing["max_abs_err"],
         "checked": timing["checked"],
         "bitwise": True,
@@ -456,7 +766,10 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-    }]}
+    }] + [_attention_entry(name, attn[name], launches) for name, launches in (
+        ("flash_attention", serve["k2_launches"]),
+        ("flash_decode", serve["k3_launches"]),
+    )]}
     REPORT.update(kernels)
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)

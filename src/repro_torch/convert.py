@@ -1,4 +1,5 @@
-"""Carry scheduling state across from the reference package.
+"""Carry scheduling state and model parameters across from the reference
+package.
 
 The functions here read the reference's objects by attribute only and
 import nothing of it, so the port and the reference can run side by side
@@ -84,3 +85,22 @@ def canon(assignments: Iterable) -> tuple:
             ),
         ))
     return tuple(out)
+
+
+def params_from_jax(tree, device="cpu", dtype=None):
+    """The port's parameter tree from the reference's, given with numpy
+    leaves (``jax.tree_util.tree_map(np.asarray, params)``).  The layouts
+    are the same, stacked ``[L, ...]`` leaves included, so each leaf is a
+    copy.  A bfloat16 leaf (``ml_dtypes.bfloat16``) moves through its bit
+    pattern, so nothing rounds; ``dtype`` then casts every leaf (default:
+    keep each leaf's own type)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=device, dtype=dtype or t.dtype)

@@ -12,6 +12,7 @@ Public API:
 ``ClusterController``           — the online event loop (multi-job streams)
 ``ClusterState``/``POLICIES``   — shared world + pluggable per-event policies
 ``schedule_bass``               — Algorithm 1 (offline wrapper)
+``QosPort``                     — Discussion-3 OpenFlow queue model
 ``replay``/``replay_online``/``evaluate_mapreduce`` — verification + metrics
 """
 from .topology import (
@@ -46,6 +47,7 @@ from .controller import (
     run_policy,
 )
 from .bass import schedule_bass
+from .qos import Flow, QosPort, QueueSpec, example3_port, shuffle_vs_default, single_queue_port
 from .simulator import JobMetrics, ReplayReport, evaluate_mapreduce, replay, replay_online
 
 __all__ = [
@@ -56,11 +58,14 @@ __all__ = [
     "ClusterController",
     "ClusterState",
     "Fabric",
+    "Flow",
     "HdsPolicy",
     "Instance",
     "JobMetrics",
     "POLICIES",
     "PreBassPolicy",
+    "QosPort",
+    "QueueSpec",
     "ReplayReport",
     "RetryPolicy",
     "Schedule",
@@ -70,6 +75,7 @@ __all__ = [
     "TransferPlan",
     "UnroutableError",
     "completion_time",
+    "example3_port",
     "evaluate_mapreduce",
     "execution_time",
     "movement_time",
@@ -78,6 +84,8 @@ __all__ = [
     "replay_online",
     "run_policy",
     "schedule_bass",
+    "shuffle_vs_default",
+    "single_queue_port",
     "storage_hosts",
     "tpu_dcn_fabric",
     "two_tier_fabric",

@@ -4,11 +4,14 @@ plain PyTorch version beside it.
 Submodules load lazily (PEP 562): ``ts_plan`` is imported by the numpy
 scheduling core on every controller start, and must not drag torch in —
 ``ts_plan_device`` (which imports torch at module scope) materializes only
-when a device backend is first used.
+when a device backend is first used.  The attention kernels (``ops``,
+``flash_attention``, ``decode_attention``, ``ref``) import torch too.
 """
 import importlib
 
-__all__ = ["ts_plan", "ts_plan_device"]
+__all__ = [
+    "decode_attention", "flash_attention", "ops", "ref", "ts_plan", "ts_plan_device",
+]
 
 
 def __getattr__(name):

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (the counterpart of
 ``repro/kernels/_compat.py``, which held the Pallas/TPU shims).
 
-The sources in ``kernels/csrc/*.cu`` expose a plain C interface.  At first
-use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``build/repro_torch/`` at the repository root, named by a
-hash of the sources and flags, and loaded with ``ctypes``.  A later
-process with the same sources loads the existing library without
-recompiling.
+Each source ``kernels/csrc/<name>.cu`` exposes a plain C interface whose
+signatures the module that owns it registers here (:func:`register`).  At
+first use a source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its
+own shared library under ``build/repro_torch/`` at the repository root,
+named by a hash of the source and flags, and loaded with ``ctypes``.  A
+later process with the same source loads the existing library without
+recompiling.  :func:`build` starts one ``nvcc`` per missing source, all at
+once, and waits for them together.
 
 Every step raises on failure — no ``nvcc``, no CUDA device, a device that
 is not capability (9, 0), a failed compile — so a caller that asked for
@@ -22,10 +24,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterable, Optional
+
+from ..obs import default_registry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# ``--fmad=false``: K1 must not contract a multiply and an add that numpy
+# rounds separately (csrc/ts_plan.cu); the attention kernels write their
+# multiply-adds as explicit ``fmaf``, which the flag leaves alone.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -33,31 +40,33 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: The last build's compiler output (``-Xptxas -v``: registers and spills
-#: per kernel), its wall time, and the loaded library's path.  The
-#: ``ts_plan_device.stats`` counters ``traces`` (nvcc runs) and
-#: ``cache_hits`` (a library already built for these sources) count builds.
-build_info = {"log": "", "build_s": 0.0, "path": None}
+#: Per source: ``builds`` (nvcc runs) and ``cache_hits`` (a library already
+#: built for the same source and flags was loaded instead).
+counts = default_registry().group("kernel_build")
 
-_lib: Optional[ctypes.CDLL] = None
+#: Per source, after its library is loaded: the compiler output of its
+#: build (``-Xptxas -v``: registers and spills per kernel; empty on a cache
+#: hit), the build's wall time, and the library's path.
+build_info: Dict[str, dict] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
+_F = ctypes.c_float
 
-#: C signatures of ``csrc/ts_plan.cu`` (all return a ``cudaError_t``).
-_SIGNATURES = {
-    "ts_plan_window": (
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _D, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P,
-    ),
-    "ts_plan_columns": (
-        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-    ),
-    "ts_plan_dense": (
-        _P, _P, _P, _P, _D, ctypes.c_int, _I, _I, _I, _P, _P, _P, _P, _P,
-    ),
-}
+# name -> (C signatures, the owner's counter group or None)
+_SOURCES: Dict[str, tuple] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def register(name: str, signatures: dict, stats=None) -> None:
+    """Declare ``csrc/<name>.cu``: its C functions' argument types (each
+    returns a ``cudaError_t``), and optionally the owner's counter group,
+    whose ``traces`` and ``cache_hits`` cells then count this source's
+    builds too."""
+    _SOURCES[name] = (dict(signatures), stats)
+    for key in ("builds", "cache_hits"):
+        counts.setdefault(f"{name}.{key}", 0)
 
 
 def find_nvcc() -> str:
@@ -77,7 +86,7 @@ def check_device() -> None:
     import torch
 
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the 'cuda' ts_plan backend needs one")
+        raise RuntimeError("no CUDA device: the port's kernels need one")
     cap = torch.cuda.get_device_capability()
     if cap != (9, 0):
         raise RuntimeError(
@@ -86,48 +95,72 @@ def check_device() -> None:
         )
 
 
-def _source_hash(sources) -> str:
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return h.hexdigest()[:16]
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    from .ts_plan_device import stats
+def _count(name: str, key: str) -> None:
+    counts[f"{name}.{key}"] += 1
+    stats = _SOURCES[name][1]
+    if stats is not None:
+        stats["traces" if key == "builds" else key] += 1
 
-    check_device()
-    sources = sorted(CSRC.glob("*.cu"))
-    if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out = BUILD_DIR / f"libts_plan.{_source_hash(sources)}.so"
-    if out.is_file():
-        stats["cache_hits"] += 1
-    else:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_info["build_s"] = time.perf_counter() - t0
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{build_info['log']}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-        stats["traces"] += 1
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+
+def _load(name: str, path: Path, log: str, build_s: float) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in _SOURCES[name][0].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    build_info["path"] = str(out)
-    _lib = lib
+    build_info[name] = {"log": log, "build_s": build_s, "path": str(path)}
+    _libs[name] = lib
     return lib
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, ctypes.CDLL]:
+    """Load the libraries of ``names`` (default: every registered source),
+    compiling the missing ones in parallel, one ``nvcc`` each."""
+    names = list(_SOURCES if names is None else names)
+    unknown = [n for n in names if n not in _SOURCES]
+    if unknown:
+        raise KeyError(f"no registered CUDA source named {unknown}")
+    todo = [n for n in names if n not in _libs]
+    if todo:
+        check_device()
+        nvcc = find_nvcc()
+    procs = {}
+    for name in todo:
+        out = _library_path(name)
+        if out.is_file():
+            _count(name, "cache_hits")
+            _load(name, out, "", 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, cmd, out, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, out, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+        _count(name, "builds")
+        _load(name, out, log, build_s)
+    if failed:
+        raise RuntimeError("\n\n".join(failed))
+    return {n: _libs[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _libs.get(name)
+    return lib if lib is not None else build([name])[name]

@@ -29,6 +29,7 @@ Every output is bit-identical to the numpy reference on any float64 input
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
@@ -37,8 +38,9 @@ import torch
 from ..obs import default_registry
 from . import _build, ts_plan
 
-#: ``traces``: kernel-library builds (nvcc runs); ``cache_hits``: a library
-#: already built for the same sources was loaded instead; ``launches``:
+#: ``traces``: builds of ``csrc/ts_plan.cu`` (nvcc runs); ``cache_hits``: a
+#: library already built for the same source was loaded instead (both
+#: counted by ``_build``); ``launches``:
 #: kernel launches (all three gather forms), with the per-form counts
 #: beside it; the ``mirror_*`` cells count ledger-mirror traffic.
 stats = default_registry().group(
@@ -52,6 +54,24 @@ stats = default_registry().group(
 
 _F64 = torch.float64
 _I64 = torch.int64
+
+_P, _I, _D = _build._P, _build._I, _build._D
+_build.register(
+    "ts_plan",
+    {
+        "ts_plan_window": (
+            _P, _I, _P, _P, _P, _P, _P, _P, _P, _D, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P,
+        ),
+        "ts_plan_columns": (
+            _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+        ),
+        "ts_plan_dense": (
+            _P, _P, _P, _P, _D, ctypes.c_int, _I, _I, _I, _P, _P, _P, _P, _P,
+        ),
+    },
+    stats=stats,
+)
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -120,7 +140,7 @@ def scan_window(M, pad, off, caps, first_secs, sizes, sz, t0c, dur: float, w: in
     if M.dim() != 2:
         raise ValueError("M must be a [rows, width] mirror")
     outs = _outputs(n, w, dev, True)
-    err = _build.library().ts_plan_window(
+    err = _build.library("ts_plan").ts_plan_window(
         M.data_ptr(), M.shape[1], pad.data_ptr(), off.data_ptr(),
         caps.data_ptr(), first_secs.data_ptr(), sizes.data_ptr(),
         sz.data_ptr(), t0c.data_ptr(), float(dur), n, L, w,
@@ -145,7 +165,7 @@ def scan_columns(M, pad, cols, caps, secs, sizes):
     if M.dim() != 2:
         raise ValueError("M must be a [rows, width] mirror")
     outs = _outputs(n, W, dev, False)
-    err = _build.library().ts_plan_columns(
+    err = _build.library("ts_plan").ts_plan_columns(
         M.data_ptr(), M.shape[1], pad.data_ptr(), cols.data_ptr(),
         caps.data_ptr(), secs.data_ptr(), sizes.data_ptr(), n, L, W,
         *(o.data_ptr() for o in outs), _stream(dev),
@@ -164,7 +184,7 @@ def scan_dense(booked, caps, secs, sizes, bandwidth_cap=None):
     _check(dev, booked=(booked, None), caps=(caps, (n,)),
            secs=(secs, (n, W)), sizes=(sizes, (n,)))
     outs = _outputs(n, W, dev, False)
-    err = _build.library().ts_plan_dense(
+    err = _build.library("ts_plan").ts_plan_dense(
         booked.data_ptr(), caps.data_ptr(), secs.data_ptr(), sizes.data_ptr(),
         0.0 if bandwidth_cap is None else float(bandwidth_cap),
         0 if bandwidth_cap is None else 1, n, L, W,

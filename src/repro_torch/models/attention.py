@@ -1,0 +1,185 @@
+"""GQA attention: full (train/prefill), decode-with-cache, and cross-attn.
+
+The plain path is PyTorch tensor code (the reference's XLA path).
+``cfg.attn_impl == "pallas"`` routes the full-sequence causal path through
+the hand-written flash-attention kernel (K2) instead, as the reference
+routes it through its Pallas kernel; the two are held against each other
+in ``tests/test_torch_attention.py``.  Decode stays on the plain path, as
+in the reference.  The reference's mesh-sharding constraints are no-ops
+without a mesh and are dropped (see ``layers``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from .layers import apply_rope, rms_norm
+from .params import P
+
+NEG_INF = -1e30
+
+
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    defs = {
+        "w_q": P((d, nq, hd), ("d_model", "heads", "head_dim")),
+        "w_k": P((d, nkv, hd), ("d_model", "kv_heads", "head_dim")),
+        "w_v": P((d, nkv, hd), ("d_model", "kv_heads", "head_dim")),
+        "w_o": P((nq, hd, d), ("heads", "head_dim", "d_model")),
+    }
+    if cfg.qk_norm and not cross:
+        defs["q_norm"] = P((hd,), ("head_dim",), "ones")
+        defs["k_norm"] = P((hd,), ("head_dim",), "ones")
+    return defs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dnh->bsnh")`` as one matrix product."""
+    d, n, h = w.shape
+    return (x @ w.reshape(d, n * h)).view(*x.shape[:-1], n, h)
+
+
+def _out_proj(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsnh,nhd->bsd")`` as one matrix product."""
+    n, h, d = w.shape
+    return out.reshape(*out.shape[:-2], n * h) @ w.reshape(n * h, d)
+
+
+def _qk_normalize(p: dict, q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig):
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k
+
+
+def _gqa_scores_out(
+    q: torch.Tensor,          # [B, Sq, nq, hd]
+    k: torch.Tensor,          # [B, Sk, nkv, hd]
+    v: torch.Tensor,          # [B, Sk, nkv, hd]
+    mask: Optional[torch.Tensor],  # broadcastable to [B, 1, 1, Sq, Sk] or None
+) -> torch.Tensor:
+    b, sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    g = nq // max(nkv, 1)
+    qg = q.reshape(b, sq, nkv, g, hd)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # float32, as the reference
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(b, sq, nq, hd)
+
+
+def _chunked_attention(
+    q: torch.Tensor,          # [B, Sq, nq, hd]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    chunk: int,
+) -> torch.Tensor:
+    """Plain-path attention over query chunks, so the materialized score
+    block is [B, nkv, g, chunk, Sk] instead of O(Sq·Sk)."""
+    b, sq, nq, hd = q.shape
+    sk = k.shape[1]
+    cq = chunk
+    while cq > 0 and sq % cq:
+        cq //= 2
+    if cq <= 0 or cq >= sq:
+        mask = causal_mask(sq, sk, device=q.device) if causal else None
+        return _gqa_scores_out(q, k, v, mask)
+    outs = []
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    for i in range(sq // cq):
+        qi = q[:, i * cq:(i + 1) * cq]
+        mask = None
+        if causal:
+            qpos = i * cq + torch.arange(cq, device=q.device)[:, None]
+            mask = (kpos <= qpos)[None, None, None]
+        outs.append(_gqa_scores_out(qi, k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def causal_mask(sq: int, sk: int, offset: int = 0, device=None) -> torch.Tensor:
+    """[1,1,1,Sq,Sk] True where attendable; query i sees keys ≤ i+offset."""
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    return (ki <= qi + offset)[None, None, None]
+
+
+def full_attention(
+    p: dict,
+    x: torch.Tensor,                    # [B, S, d]
+    cfg: ModelConfig,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Self-attention over the whole sequence → (out, (k, v) for caching)."""
+    q = _proj(x, p["w_q"])
+    k = _proj(x, p["w_k"])
+    v = _proj(x, p["w_v"])
+    q, k = _qk_normalize(p, q, k, cfg)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if cfg.attn_impl == "pallas" and causal:
+        from ..kernels import ops as kops
+
+        out = kops.flash_attention(q, k, v, causal=True)
+    else:
+        out = _chunked_attention(q, k, v, causal, cfg.attn_chunk)
+    return _out_proj(out, p["w_o"]), (k, v)
+
+
+def decode_attention(
+    p: dict,
+    x: torch.Tensor,                    # [B, 1, d]
+    cfg: ModelConfig,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    k_cache: torch.Tensor,              # [B, S_max, nkv, hd]
+    v_cache: torch.Tensor,
+    pos: int,                           # next position to write
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode: write k/v at ``pos``, attend over positions ≤ pos.
+
+    The caches are written in place (the reference returns updated copies
+    and its engine donates the old ones); the same tensors are returned.
+    As with ``dynamic_update_slice``, a ``pos`` outside the cache writes at
+    the nearest end."""
+    q = _proj(x, p["w_q"])
+    k = _proj(x, p["w_k"])
+    v = _proj(x, p["w_v"])
+    q, k = _qk_normalize(p, q, k, cfg)
+    if rope is not None:
+        cos, sin = rope                 # tables for position `pos`: [1, hd/2]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    s_max = k_cache.shape[1]
+    at = min(max(int(pos), 0), s_max - 1)
+    k_cache[:, at] = k[:, 0]
+    v_cache[:, at] = v[:, 0]
+    ki = torch.arange(s_max, device=x.device)
+    mask = (ki <= pos).reshape(1, 1, 1, 1, s_max)
+    out = _gqa_scores_out(q, k_cache, v_cache, mask)
+    return _out_proj(out, p["w_o"]), k_cache, v_cache
+
+
+def cross_attention(
+    p: dict,
+    x: torch.Tensor,                    # [B, Sq, d]
+    k: torch.Tensor,                    # [B, Sk, nkv, hd] (precomputed enc K)
+    v: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    q = _proj(x, p["w_q"])
+    out = _gqa_scores_out(q, k, v, None)
+    return _out_proj(out, p["w_o"])
+
+
+def cross_kv(p: dict, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _proj(enc, p["w_k"]), _proj(enc, p["w_v"])

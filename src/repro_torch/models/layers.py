@@ -1,0 +1,91 @@
+"""Shared layer primitives: RMSNorm, RoPE, sinusoidal positions, MLPs.
+
+The reference constrains activations to a mesh sharding here
+(``distributed.actctx.constrain``); with no mesh that call is a no-op, and
+the port runs on one card, so it is dropped.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .params import P
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_tables(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for integer ``positions`` [...,] → [..., head_dim//2]
+    (float32 throughout, as the reference computes them)."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [..., S, n_heads, head_dim]; cos/sin: [S, head_dim//2] (or broadcastable)."""
+    half = x.shape[-1] // 2
+    # cos/sin broadcast over the heads axis: [S, 1, half]
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings for integer positions [...,]."""
+    half = d_model // 2
+    freqs = torch.exp(
+        -torch.arange(half, dtype=torch.float32, device=positions.device)
+        * (math.log(10_000.0) / max(half - 1, 1))
+    )
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, width: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, width or cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "w_gate": P((d, f), ("d_model", "d_ff")),
+            "w_up": P((d, f), ("d_model", "d_ff")),
+            "w_down": P((f, d), ("d_ff", "d_model")),
+        }
+    return {
+        "w_in": P((d, f), ("d_model", "d_ff")),
+        "w_out": P((f, d), ("d_ff", "d_model")),
+    }
+
+
+def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated (swiglu) or plain (tanh-approximate GELU, jax's default) MLP."""
+    if cfg.mlp_kind == "swiglu":
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        h = F.silu(g.float()).to(x.dtype) * u
+        return h @ p["w_down"]
+    h = x @ p["w_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p["w_out"]

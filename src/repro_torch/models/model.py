@@ -1,0 +1,150 @@
+"""Unified model API (the dense and VLM families in this slice).
+
+``Model(cfg)`` exposes:
+
+* ``defs()`` / ``init(generator, device)`` / ``abstract()`` — parameters
+* ``prefill(params, batch, s_max)`` — full pass → (last logits, caches)
+* ``decode(params, token, pos, caches)`` — one-token step
+* ``cache_defs(batch, s_max)`` / ``init_caches(batch, s_max, device)``
+
+Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub).
+The training loss belongs to the training slice and the encoder-decoder
+family to its own (ROADMAP.md queue 1); ``encdec`` raises here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .layers import rms_norm, rope_tables
+from .params import P, Tree, abstract_params, dtype_of, init_params, param_axes, tree_map_defs
+from .transformer import (
+    apply_stack_decode,
+    apply_stack_full,
+    cache_defs as tf_cache_defs,
+    model_defs,
+)
+
+
+def _no_encdec(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "not ported yet: the encoder-decoder family (models/encdec.py) "
+            "is ROADMAP.md queue 1, item 3"
+        )
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    # -- parameters -----------------------------------------------------------
+    def defs(self) -> Tree:
+        _no_encdec(self.cfg)
+        return model_defs(self.cfg)
+
+    def init(self, generator: torch.Generator, device="cuda") -> Tree:
+        return init_params(self.defs(), generator, self.cfg.param_dtype, device)
+
+    def abstract(self) -> Tree:
+        return abstract_params(self.defs(), self.cfg.param_dtype)
+
+    def axes(self) -> Tree:
+        return param_axes(self.defs())
+
+    # -- embedding / head -------------------------------------------------------
+    def _embed(self, params: Tree, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens].to(dtype_of(self.cfg.compute_dtype))
+
+    def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            logits = x @ params["embed"].T
+        else:
+            logits = x @ params["lm_head"]
+        return logits.float()
+
+    def _rope(self, positions: torch.Tensor):
+        if not self.cfg.use_rope or self.cfg.n_heads == 0:
+            return None
+        return rope_tables(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+
+    def _assemble_input(self, params: Tree, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Token embeddings with modality-stub prefixes prepended."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            vis = batch["vision_embeds"].to(x.dtype)     # [B, n_vis, d]
+            x = torch.cat([vis, x], dim=1)
+        return x
+
+    # -- serving ---------------------------------------------------------------
+    def cache_defs(self, batch: int, s_max: int) -> Tree:
+        _no_encdec(self.cfg)
+        return tf_cache_defs(self.cfg, batch, s_max)
+
+    def init_caches(self, batch: int, s_max: int, device="cuda") -> Tree:
+        """Zero caches: the SSM state ``h`` in float32, the rest (k, v, the
+        conv window) in the compute dtype."""
+        def mk(p: P):
+            dt = torch.float32 if "ssm_state" in p.axes else dtype_of(self.cfg.compute_dtype)
+            return torch.zeros(p.shape, dtype=dt, device=device)
+
+        return tree_map_defs(mk, self.cache_defs(batch, s_max))
+
+    def prefill(
+        self, params: Tree, batch: Dict[str, torch.Tensor], s_max: int
+    ) -> Tuple[torch.Tensor, Tree]:
+        """Full pass over the prompt → (logits at last position, caches)."""
+        _no_encdec(self.cfg)
+        x = self._assemble_input(params, batch)
+        rope = self._rope(torch.arange(x.shape[1], device=x.device))
+        x, _, states = apply_stack_full(
+            self.cfg, params["stack"], x, rope, collect_state=True
+        )
+        logits = self._head(params, x[:, -1:])[:, 0]
+        return logits, self._pad_states(states, s_max)
+
+    def _pad_states(self, states: Tree, s_max: int) -> Tree:
+        """Place prefill k/v (length S) into zero caches of length s_max."""
+
+        def pad(name: str, arr: torch.Tensor) -> torch.Tensor:
+            if name not in ("k", "v"):
+                return arr
+            # [L, B, S, nkv, hd] → [L, B, s_max, nkv, hd]
+            pad_len = s_max - arr.shape[2]
+            if pad_len <= 0:
+                return arr[:, :, :s_max]
+            zeros = arr.new_zeros(arr.shape[:2] + (pad_len,) + arr.shape[3:])
+            return torch.cat([arr, zeros], dim=2)
+
+        return _map_named(pad, states)
+
+    def decode(
+        self,
+        params: Tree,
+        token: torch.Tensor,         # [B, 1] integer
+        pos: int,                    # position being written
+        caches: Tree,
+    ) -> Tuple[torch.Tensor, Tree]:
+        """One-token step → (logits [B, V], caches).  The caches are
+        updated in place and returned."""
+        _no_encdec(self.cfg)
+        x = self._embed(params, token)
+        rope = self._rope(torch.tensor([int(pos)], device=x.device))
+        x, caches = apply_stack_decode(self.cfg, params["stack"], x, rope, caches, int(pos))
+        return self._head(params, x)[:, 0], caches
+
+
+def _map_named(fn, tree):
+    """Map over a dict tree passing each leaf's key."""
+    if isinstance(tree, dict):
+        return {k: (_map_named(fn, v) if isinstance(v, dict) else fn(k, v))
+                for k, v in tree.items()}
+    return tree
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -172,3 +172,120 @@ def test_multipath_and_switch_kill_on_the_card_match_numpy(card):
                 float(a.remaining).hex()) == (b.flow, b.old_path, b.new_path,
                                               float(b.delivered).hex(),
                                               float(b.remaining).hex())
+
+
+# -- K2 and K3 ---------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+FLASH_CASES_CARD = [
+    # (B, S, nq, nkv, hd, dtype, causal): the reference's FLASH_CASES, the
+    # model's prefill shape, a sequence shorter than one tile, a ragged last
+    # tile, and the non-causal form.
+    (2, 256, 4, 2, 64, torch.float32, True),
+    (1, 128, 8, 8, 128, torch.float32, True),
+    (2, 256, 6, 2, 64, torch.bfloat16, True),
+    (1, 512, 4, 4, 128, torch.bfloat16, True),
+    (1, 128, 14, 2, 64, torch.float32, True),
+    (1, 512, 32, 8, 128, torch.bfloat16, True),
+    (1, 32, 4, 2, 64, torch.float32, True),
+    (2, 96, 4, 1, 128, torch.bfloat16, True),
+    (1, 256, 4, 2, 128, torch.float32, False),
+]
+
+DECODE_CASES_CARD = [
+    # (B, S, nq, nkv, hd, pos): the reference's DECODE_CASES and the
+    # model's decode shape; each in float32 and bfloat16.
+    (2, 512, 4, 2, 64, 137),
+    (1, 1024, 8, 8, 128, 1023),
+    (2, 256, 6, 2, 64, 0),
+    (1, 512, 16, 16, 64, 300),
+    (4, 1024, 32, 8, 128, 600),
+]
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES_CARD, ids=str)
+def test_flash_attention_kernel_matches_plain(card, case):
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    b, s, nq, nkv, hd, dtype, causal = case
+    rng = np.random.default_rng(s + nq)
+    q = _normal(rng, (b, s, nq, hd), dtype, card)
+    k = _normal(rng, (b, s, nkv, hd), dtype, card)
+    v = _normal(rng, (b, s, nkv, hd), dtype, card)
+    launches = flash_attention.stats["launches"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.stats["launches"] == launches + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    want = ref.attention_ref(*(t.cpu().transpose(1, 2) for t in (q, k, v)), causal=causal)
+    err = (got.cpu().float() - want.transpose(1, 2).float()).abs().max()
+    assert float(err) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES_CARD, ids=str)
+def test_flash_decode_kernel_matches_plain(card, case, dtype):
+    from repro_torch.kernels import decode_attention, ops, ref
+
+    b, s, nq, nkv, hd, pos = case
+    rng = np.random.default_rng(s + pos)
+    q = _normal(rng, (b, 1, nq, hd), dtype, card)
+    k = _normal(rng, (b, s, nkv, hd), dtype, card)
+    v = _normal(rng, (b, s, nkv, hd), dtype, card)
+    launches = decode_attention.stats["launches"]
+    got = ops.flash_decode(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_attention.stats["launches"] == launches + 1
+    want = ref.decode_ref(*(t.cpu().transpose(1, 2) for t in (q, k, v)), pos)
+    err = (got.cpu().float() - want.transpose(1, 2).float()).abs().max()
+    assert float(err) <= ATTN_TOL[dtype]
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 64, 4, 96), device=card)  # head dim 96
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 64, 4, 64), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="host integer"):
+        ops.flash_decode(q[:, :1].float(), q.float(), q.float(),
+                         torch.tensor(3, device=card))
+
+
+def test_two_layer_full_width_serve_on_the_card(card):
+    """mistral-nemo-12b at full width, 2 layers: the engine's prefills go
+    through K2 (one launch per layer and prefill), and in float32 the
+    greedy tokens equal the plain attention path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mistral-nemo-12b").with_(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=card).manual_seed(0), card)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in (64, 128)]
+    tokens = {}
+    for impl in ("pallas", "xla"):
+        eng = ServeEngine(Model(cfg.with_(attn_impl=impl)), params, 2, 256, device=card)
+        launches = flash_attention.stats["launches"]
+        reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            assert eng.admit(r)
+        while eng.active:
+            eng.tick()
+        tokens[impl] = [r.tokens_out for r in reqs]
+        want = 2 * cfg.n_layers if impl == "pallas" else 0
+        assert flash_attention.stats["launches"] - launches == want
+    assert tokens["pallas"] == tokens["xla"]
+    assert all(len(t) == 6 for t in tokens["pallas"])

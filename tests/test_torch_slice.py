@@ -227,6 +227,27 @@ def test_core_imports_neither_torch_nor_jax_nor_reference():
     assert out.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("modules", [
+    "repro_torch.models, repro_torch.models.model",
+    "repro_torch.serving, repro_torch.serving.router, repro_torch.serving.engine",
+    "repro_torch.launch.serve, repro_torch.kernels.ops",
+])
+def test_serving_path_imports_neither_jax_nor_reference(modules):
+    code = (
+        "import sys\n"
+        f"import {modules}\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
+        "       or m.startswith(('jax.', 'repro.'))]\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": SRC}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_sources_import_nothing_of_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = [os.path.join(ROOT, "chip_smoke.py")]
