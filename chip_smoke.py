@@ -35,6 +35,22 @@ result lines are printed:
               against the plain attention path: (a) full depth, bf16,
               last-position prefill logits; (b) full width, 4 layers, f32,
               16 greedy tokens identical.
+7. train    — (a) the selective scan (K4) against its plain PyTorch version
+              on the card, on the reference's test shapes and the model's,
+              in float32 (atol 2e-4); its time at the model's shape beside
+              the plain version's and the bound.  falcon-mamba-7b at full
+              width, 16 of its 64 layers (bf16, seeded random parameters,
+              2 × 1 024 seeded tokens): (b) ``make_eval_step`` through K4
+              (one launch per layer) and through the plain time loop, the
+              two losses within 1e-3 in bf16 and, on float32 parameters,
+              within 1e-5; K4 against the time loop on the first layer's
+              own scan inputs; (c) three ``make_train_step`` steps
+              (plain scan, remat, AdamW with warmup-cosine), losses and
+              grad norms finite and positive and the parameters moved, with
+              step time, tokens/s and peak device memory, then a fourth
+              step and a second eval under ``torch.profiler`` (device time
+              and idle share); (d) at 2 layers,
+              a train step through K4 raises, as in the reference.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -55,10 +71,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, vector float64 and
-# dense bf16 tensor-core rates.
+# float32 and dense bf16 tensor-core rates; and the special-function units'
+# exponentials, 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) on 132 SMs at the
+# 1.98 GHz boost clock.
 HBM_BYTES_S = 3.35e12
 F64_FLOP_S = 34e12
+F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+SFU_EXP_S = 16 * 132 * 1.98e9
 SEED = 0
 REPORT = {}
 
@@ -84,7 +105,7 @@ def phase_device():
 
     # Importing each kernel's module registers its source with _build.
     from repro_torch.kernels import _build, decode_attention, flash_attention  # noqa: F401
-    from repro_torch.kernels import ts_plan_device  # noqa: F401
+    from repro_torch.kernels import mamba_scan, ts_plan_device  # noqa: F401
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke needs an H100")
@@ -319,12 +340,14 @@ def fleet_instance(pods: int, hosts: int, n_tasks: int):
 
 def _reset_counts():
     """Every kernel's launch count (and the scan's call counts) to 0."""
-    from repro_torch.kernels import decode_attention, flash_attention, ts_plan, ts_plan_device
+    from repro_torch.kernels import (decode_attention, flash_attention, mamba_scan, ts_plan,
+                                     ts_plan_device)
 
     ts_plan_device.stats.reset()
     ts_plan.calls.reset()
     flash_attention.stats.reset()
     decode_attention.stats.reset()
+    mamba_scan.stats.reset()
 
 
 def _counts():
@@ -609,7 +632,7 @@ def _prefill_logits_f32(cfg, params, prompt, dev):
         rope = model._rope(torch.arange(x.shape[1], device=dev))
         for li in range(cfg.n_layers):
             lp = up(tf._index_tree(params["stack"], li))
-            x, _ = tf._apply_layer_full(lp, x, cfg32, rope, "mlp", False)
+            x, _ = tf._apply_layer_full(lp, x, cfg32, rope, "attn", "mlp", False)
         head = up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]})
         return model._head(head, x[:, -1:])[0, 0]
 
@@ -720,6 +743,239 @@ def phase_serve():
     return run
 
 
+# -- phase 7 -------------------------------------------------------------------
+
+SCAN_TOL = 2e-4  # tests/test_kernels.py's atol for the scan, float32
+# (B, S, d_in, N): tests/test_kernels.py's MAMBA_CASES, then the model's
+# shape — falcon-mamba-7b's scan over a batch of 2 × 1 024 tokens.
+MAMBA_SHAPES = [(2, 256, 128, 8), (1, 512, 256, 16), (2, 128, 512, 4),
+                (2, 1024, 8192, 16)]
+TRAIN = dict(arch="falcon-mamba-7b", n_layers=16, batch=2, seq=1024, steps=3,
+             peak_lr=1e-3, warmup=1)
+# (b): the K4 path and the time-loop path compute the same float32 scan
+# and differ only in its rounding.  In float32 throughout that is all the
+# losses see: 1e-5 is ten float32 ulps of a loss of about 12.  In bf16 the
+# scan's rounding (about 1e-7 of y) flips bf16 roundings of the gated
+# output, and through 16 layers the flips moved the loss by 3.4e-4 in the
+# first run of this check on an H100, against a bound of 1e-4 that a CPU
+# proxy had suggested; so the bf16 bound is 1e-3 (1e-4 of the loss), and
+# the float32 leg and the layer-0 scan on the path's own inputs are the
+# close checks of the kernel.
+EVAL_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def _scan_inputs(rng, b, s, d_in, n, dev):
+    """x normal, dt = softplus(normal), a = -exp(0.5 normal), B and C
+    normal: the reference's test inputs, made with numpy."""
+    import torch
+
+    mk = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)  # noqa: E731
+    return (mk(rng.standard_normal((b, s, d_in))),
+            mk(np.log1p(np.exp(rng.standard_normal((b, s, d_in))))),
+            mk(-np.exp(0.5 * rng.standard_normal((d_in, n)))),
+            mk(rng.standard_normal((b, s, n))), mk(rng.standard_normal((b, s, n))))
+
+
+def _phase_scan(cuda):
+    """(a): K4 against its plain version; its time at the model's shape."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED)
+    err, fails = 0.0, []
+    for case in MAMBA_SHAPES:
+        inputs = _scan_inputs(rng, *case, cuda)
+        e = float((ops.mamba_scan(*inputs) - ref.mamba_scan_ref(*inputs)).abs().max())
+        err = max(err, e)
+        if not e <= SCAN_TOL:
+            fails.append(f"{case}: {e}")
+    torch.cuda.synchronize()
+    if fails:
+        raise AssertionError(f"K4 differs from its plain version: {fails}")
+    b, s, d_in, n = MAMBA_SHAPES[-1]
+    inputs = _scan_inputs(rng, b, s, d_in, n, cuda)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
+    nbytes = 4 * (3 * b * s * d_in + d_in * n + 2 * b * s * n)
+    n_exp = b * s * d_in * n
+    flops = b * s * d_in * (1 + 6 * n)  # Δx; per state Δ·A, ⊙h, ·B, +, ·C, Σ
+    bound = {"bytes": nbytes / HBM_BYTES_S,
+             "operations": max(flops / F32_FLOP_S, n_exp / SFU_EXP_S)}
+    by = max(bound, key=bound.get)
+    return dict(
+        checked=len(MAMBA_SHAPES), tolerance=SCAN_TOL, max_abs_err=err,
+        shape=dict(B=b, S=s, d_in=d_in, N=n, dtype="float32"),
+        ms=_time_ms(lambda: ops.mamba_scan(*inputs), flush=flush),
+        ms_l2_warm=_time_ms(lambda: ops.mamba_scan(*inputs)),
+        plain_ms=_time_ms(lambda: ref.mamba_scan_ref(*inputs), flush=flush),
+        library_ms=None, bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes,
+        flops=flops, exps=n_exp, flops_ms=flops / F32_FLOP_S * 1e3,
+        exps_ms=n_exp / SFU_EXP_S * 1e3)
+
+
+def phase_train():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, mamba_scan
+    from repro_torch.launch.steps import make_eval_step, make_train_step
+    from repro_torch.models import count_params
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    scan = _phase_scan(cuda)
+
+    cfg = get_config(TRAIN["arch"]).with_(n_layers=TRAIN["n_layers"], ssm_impl="pallas",
+                                          remat=True)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, size=(TRAIN["batch"], TRAIN["seq"]))
+    batch = {"tokens": torch.as_tensor(toks, device=cuda)}
+    n_tokens = toks.size
+
+    # (b) The eval path's run: counts to 0 just before it, read just after.
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out_k = make_eval_step(Model(cfg))(params, batch)
+    loss_k = float(out_k["loss"])
+    eval_k_s = time.perf_counter() - t0
+    launches = {"mamba_scan": mamba_scan.stats["launches"],
+                "flash_attention": flash_attention.stats["launches"],
+                "flash_decode": decode_attention.stats["launches"]}
+    t0 = time.perf_counter()
+    loss_x = float(make_eval_step(Model(cfg.with_(ssm_impl="xla")))(params, batch)["loss"])
+    eval_x_s = time.perf_counter() - t0
+    check_b = dict(bfloat16=dict(loss_kernel=loss_k, loss_plain=loss_x,
+                                 abs_diff=abs(loss_k - loss_x)),
+                   tolerance=EVAL_TOL, seconds_kernel=eval_k_s, seconds_plain=eval_x_s,
+                   launches=launches, layer0_scan=_layer0_scan(cfg, params, batch))
+    _, check_b["profile_kernel"] = _profiled(lambda: make_eval_step(Model(cfg))(params, batch))
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    params32 = Model(cfg32).init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
+    l32 = {impl: float(make_eval_step(Model(cfg32.with_(ssm_impl=impl)))(params32, batch)["loss"])
+           for impl in ("pallas", "xla")}
+    del params32
+    check_b["float32"] = dict(loss_kernel=l32["pallas"], loss_plain=l32["xla"],
+                              abs_diff=abs(l32["pallas"] - l32["xla"]))
+    if not all(np.isfinite(check_b[dt]["loss_kernel"])
+               and check_b[dt]["abs_diff"] <= EVAL_TOL[dt] for dt in EVAL_TOL):
+        raise AssertionError(f"(b) the eval losses differ: {check_b}")
+    if not check_b["layer0_scan"]["max_abs_err"] <= SCAN_TOL:
+        raise AssertionError(f"(b) K4 differs on the path's inputs: {check_b}")
+    if launches["mamba_scan"] != cfg.n_layers:
+        raise AssertionError(f"(b) K4 launched {launches['mamba_scan']} times for "
+                             f"{cfg.n_layers} layers")
+
+    # (c) Three train steps on the plain scan, with remat.
+    opt = AdamW(lr=warmup_cosine(TRAIN["peak_lr"], TRAIN["warmup"], TRAIN["steps"]))
+    step = make_train_step(Model(cfg.with_(ssm_impl="xla")), opt)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, losses, norms, step_s = params, [], [], []
+    for _ in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        p, state, metrics = step(p, state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    (p, state, _), profile = _profiled(lambda: step(p, state, batch))
+    moved = {"/".join(path): float((new != old).float().mean())
+             for (path, new), (_, old) in zip(flatten(p), flatten(params))}
+    sizes = {"/".join(path): t.numel() for path, t in flatten(params)}
+    moved_all = sum(moved[k] * sizes[k] for k in moved) / sum(sizes.values())
+    run = dict(config=TRAIN, cut="n_layers 64 -> 16 (one H100 holds the bf16 "
+               "parameters, gradients and float32 moments of 16 layers, not of 64)",
+               params=count_params(Model(cfg).defs()), init_s=init_s, losses=losses,
+               grad_norms=norms, step_s=step_s, step_p50_s=float(np.median(step_s)),
+               tokens_s=n_tokens / float(np.median(step_s)), max_memory_allocated=peak,
+               moved_fraction=moved_all, moved_fraction_by_leaf=moved,
+               profile_step4=profile)
+    # Some leaves move by less than half a bf16 ulp in three steps: those
+    # initialised to ones or to A's logs, and w_dt and dt_proj, whose
+    # gradients at this random initialisation are far below AdamW's eps
+    # (about 1e-14 at the smoke width).  The projections and the embedding,
+    # most of the parameters, must move.
+    del p, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (all(np.isfinite(v) and v > 0 for v in losses + norms) and moved_all >= 0.9):
+        raise AssertionError(f"(c) train run failed: {run}")
+
+    # (d) A train step through K4 raises, as in the reference.
+    cfg2 = cfg.with_(n_layers=2)
+    params2 = Model(cfg2).init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
+    opt2 = AdamW()
+    try:
+        make_train_step(Model(cfg2), opt2)(params2, opt2.init(params2), batch)
+        check_d = dict(raised=None)
+    except NotImplementedError as exc:
+        check_d = dict(raised="NotImplementedError", message=str(exc))
+    del params2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", scan=scan, check_b=check_b, run=run, check_d=check_d)
+    if check_d["raised"] is None:
+        raise AssertionError("(d) a train step through K4 did not raise")
+    return dict(scan=scan, launches=launches["mamba_scan"], run=run)
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler``, tracing the device only → (its
+    result, the wall time, the summed device time and count of the CUDA
+    kernels and copies it ran, the idle share 1 − device/wall, the six
+    largest by device time, and the seconds the trace took to read)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) * 1e-6
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return out, dict(wall_s=wall, device_s=busy, idle_share=1.0 - busy / wall,
+                     device_ops=sum(e.count for e in dev),
+                     top=[dict(name=e.key[:90], count=e.count,
+                               ms=e.self_device_time_total * 1e-3) for e in top],
+                     read_s=time.perf_counter() - t0)
+
+
+def _layer0_scan(cfg, params, batch):
+    """K4 against the plain time loop on the scan inputs that the eval
+    path gives the first layer."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_norm
+
+    with torch.no_grad():
+        lp = {k: v[0] for k, v in params["stack"]["mamba"].items()}
+        x = rms_norm(params["embed"][batch["tokens"]], params["stack"]["ln1"][0], cfg.norm_eps)
+        xp = ssm._causal_depthwise_conv(x @ lp["w_in_x"], lp["conv_w"], lp["conv_b"])
+        xc, dt, b_mat, c_mat = ssm._ssm_inputs(lp, xp, cfg)
+        a = -torch.exp(lp["a_log"].float())
+        y = ops.mamba_scan(xc.float(), dt, a, b_mat, c_mat)
+        h0 = a.new_zeros((xc.shape[0],) + tuple(a.shape))
+        want, _ = ssm._scan_time(xc.float(), dt, a, b_mat, c_mat, h0)
+    return dict(max_abs_err=float((y - want).abs().max()), max_abs_y=float(want.abs().max()),
+                rms_y=float(want.square().mean().sqrt()),
+                rms_skip=float(xc.float().square().mean().sqrt()))
+
 
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -750,6 +1006,7 @@ def main() -> int:
     fail_cuda = phase_failure()
     attn = phase_attention()
     serve = phase_serve()
+    train = phase_train()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -769,7 +1026,21 @@ def main() -> int:
     }] + [_attention_entry(name, attn[name], launches) for name, launches in (
         ("flash_attention", serve["k2_launches"]),
         ("flash_decode", serve["k3_launches"]),
-    )]}
+    )] + [{
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:69",
+        "launches": train["launches"],
+        "launches_note": "on the eval path (16 layers); the train step takes the "
+                         "plain scan, as the reference's must (K4 has no backward)",
+        "max_abs_err": train["scan"]["max_abs_err"],
+        "ms": train["scan"]["ms"],
+        "plain_ms": train["scan"]["plain_ms"],
+        "bound_ms": train["scan"]["bound_ms"],
+        "bound_by": train["scan"]["bound_by"],
+        "library_ms": None,
+    }]}
     REPORT.update(kernels)
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)

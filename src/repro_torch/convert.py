@@ -87,13 +87,14 @@ def canon(assignments: Iterable) -> tuple:
     return tuple(out)
 
 
-def params_from_jax(tree, device="cpu", dtype=None):
+def params_from_jax(tree, device="cuda", dtype=None):
     """The port's parameter tree from the reference's, given with numpy
     leaves (``jax.tree_util.tree_map(np.asarray, params)``).  The layouts
     are the same, stacked ``[L, ...]`` leaves included, so each leaf is a
-    copy.  A bfloat16 leaf (``ml_dtypes.bfloat16``) moves through its bit
-    pattern, so nothing rounds; ``dtype`` then casts every leaf (default:
-    keep each leaf's own type)."""
+    copy, placed on ``device`` (default the card; pass ``"cpu"`` on a
+    machine without one).  A bfloat16 leaf (``ml_dtypes.bfloat16``) moves
+    through its bit pattern, so nothing rounds; ``dtype`` then casts every
+    leaf (default: keep each leaf's own type)."""
     import torch
 
     if isinstance(tree, dict):

@@ -4,13 +4,15 @@ plain PyTorch version beside it.
 Submodules load lazily (PEP 562): ``ts_plan`` is imported by the numpy
 scheduling core on every controller start, and must not drag torch in —
 ``ts_plan_device`` (which imports torch at module scope) materializes only
-when a device backend is first used.  The attention kernels (``ops``,
-``flash_attention``, ``decode_attention``, ``ref``) import torch too.
+when a device backend is first used.  The model kernels (``ops``,
+``flash_attention``, ``decode_attention``, ``mamba_scan``, ``ref``) import
+torch too.
 """
 import importlib
 
 __all__ = [
-    "decode_attention", "flash_attention", "ops", "ref", "ts_plan", "ts_plan_device",
+    "decode_attention", "flash_attention", "mamba_scan", "ops", "ref", "ts_plan",
+    "ts_plan_device",
 ]
 
 

@@ -1,11 +1,13 @@
-"""Public wrappers around the hand-written attention kernels, in the
-model's layout.
+"""Public wrappers around the hand-written kernels, in the model's layout.
 
-The model code calls these with ``[B, S, H, hd]`` tensors; the wrappers
-hand the kernels ``[B, H, S, hd]`` views (transposes, no copies) and
-return the model's layout, with the reference's keyword arguments.  CUDA
-tensors go to the kernels and CPU tensors to their plain versions; the
-choice is made by the tensors' device alone.
+The model code calls the attention wrappers with ``[B, S, H, hd]``
+tensors; they hand the kernels ``[B, H, S, hd]`` views (transposes, no
+copies) and return the model's layout, with the reference's keyword
+arguments.  :func:`mamba_scan` picks the scan's blocks as the reference
+does and runs it as an autograd function, so that a train step through it
+fails loudly instead of losing the gradient below it.  CUDA tensors go to
+the kernels and CPU tensors to their plain versions; the choice is made by
+the tensors' device alone.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from .decode_attention import flash_decode_bhsd
 from .flash_attention import flash_attention_bhsd
+from .mamba_scan import mamba_scan_blocked
 
 
 def flash_attention(
@@ -44,8 +47,41 @@ def flash_decode(
     return out.transpose(1, 2)
 
 
-def mamba_scan(*args, **kwargs):
-    raise NotImplementedError(
-        "mamba_scan is K4, not ported yet: ROADMAP.md §1 queue item 1 "
-        "(the training slice, falcon-mamba-7b loss through ssm_impl='pallas')"
+class _MambaScan(torch.autograd.Function):
+    """K4 with no backward, as in the reference: ``jax.grad`` through its
+    Pallas call fails too.  A bare kernel call would return a tensor with
+    no ``grad_fn`` and silently cut the gradient of every layer below it;
+    this one raises when a backward reaches it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, block_d, chunk):
+        return mamba_scan_blocked(x, dt, a, b_mat, c_mat, block_d=block_d, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        raise NotImplementedError(
+            "mamba_scan (K4) has no backward: the reference has no gradient "
+            "through its Pallas scan either (jax.grad fails in pallas_call's "
+            "JVP rule); train with ssm_impl='xla'"
+        )
+
+
+def mamba_scan(
+    x: torch.Tensor,            # [B, S, d_in] f32
+    dt: torch.Tensor,
+    a: torch.Tensor,            # [d_in, N] f32
+    b_mat: torch.Tensor,        # [B, S, N]
+    c_mat: torch.Tensor,
+    block_d: int = 512,
+    chunk: int = 256,
+) -> torch.Tensor:
+    d_in, s = x.shape[-1], x.shape[1]
+    bd = block_d
+    while d_in % bd:
+        bd //= 2
+    ck = chunk
+    while s % ck:
+        ck //= 2
+    return _MambaScan.apply(
+        *(t.contiguous() for t in (x, dt, a, b_mat, c_mat)), bd, ck
     )

@@ -1,4 +1,4 @@
-"""PyTorch model zoo: the dense and VLM stacks of the assigned
+"""PyTorch model zoo: the dense, VLM and SSM stacks of the assigned
 architectures (the rest arrive with later slices)."""
 from .model import Model, build_model
 from .params import P, abstract_params, count_params, init_params, param_axes

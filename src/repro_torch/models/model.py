@@ -1,15 +1,16 @@
-"""Unified model API (the dense and VLM families in this slice).
+"""Unified model API (the dense, VLM and SSM families so far).
 
 ``Model(cfg)`` exposes:
 
 * ``defs()`` / ``init(generator, device)`` / ``abstract()`` — parameters
+* ``loss(params, batch)``       — next-token CE (+ MoE aux), f32
 * ``prefill(params, batch, s_max)`` — full pass → (last logits, caches)
 * ``decode(params, token, pos, caches)`` — one-token step
 * ``cache_defs(batch, s_max)`` / ``init_caches(batch, s_max, device)``
 
-Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub).
-The training loss belongs to the training slice and the encoder-decoder
-family to its own (ROADMAP.md queue 1); ``encdec`` raises here.
+Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub),
+optional ``loss_mask``.  The encoder-decoder family is a later slice
+(ROADMAP.md queue 1); ``encdec`` raises here.
 """
 from __future__ import annotations
 
@@ -79,6 +80,37 @@ class Model:
             vis = batch["vision_embeds"].to(x.dtype)     # [B, n_vis, d]
             x = torch.cat([vis, x], dim=1)
         return x
+
+    # -- training loss -----------------------------------------------------------
+    def loss(
+        self, params: Tree, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy in float32 (over ``loss_mask``'s
+        positions where given) plus the auxiliary loss → (total, {"ce",
+        "aux"})."""
+        cfg = self.cfg
+        _no_encdec(cfg)
+        x = self._assemble_input(params, batch)
+        rope = self._rope(torch.arange(x.shape[1], device=x.device))
+        x, aux, _ = apply_stack_full(cfg, params["stack"], x, rope)
+        logits = self._head(params, x)
+        n_prefix = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+
+        tokens = batch["tokens"]
+        # predict token t+1 from position (n_prefix + t)
+        pred = logits[:, n_prefix: n_prefix + tokens.shape[1] - 1]
+        tgt = tokens[:, 1:].long()
+        logz = torch.logsumexp(pred, dim=-1)
+        gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
+        nll = logz - gold
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            m = mask[:, 1:].float()
+            ce = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+        else:
+            ce = nll.mean()
+        total = ce + cfg.aux_loss_weight * aux
+        return total, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------
     def cache_defs(self, batch: int, s_max: int) -> Tree:

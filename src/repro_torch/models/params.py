@@ -50,14 +50,25 @@ def tree_map_defs(fn: Callable[[P], Any], defs: Tree) -> Tree:
     return {k: tree_map_defs(fn, v) for k, v in defs.items()}
 
 
-def _leaves(tree: Tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+def flatten(tree: Tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     """(path, leaf) in sorted key order — the order ``jax.tree_util``
     flattens a dict in."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
+            yield from flatten(tree[k], path + (k,))
     else:
         yield path, tree
+
+
+def unflatten(paths, leaves) -> Tree:
+    """The dict tree holding each leaf at its path (inverse of :func:`flatten`)."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves, strict=True):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def _init_leaf(p: P, generator: torch.Generator, dtype, device) -> torch.Tensor:
@@ -92,13 +103,8 @@ def init_params(defs: Tree, generator: torch.Generator, dtype, device="cuda") ->
     ``generator`` (on whatever device it lives), leaves in sorted-path
     order."""
     dtype = dtype_of(dtype)
-    out: dict = {}
-    for path, p in _leaves(defs):
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = _init_leaf(p, generator, dtype, device)
-    return out
+    paths, defs_ = zip(*flatten(defs))
+    return unflatten(paths, [_init_leaf(p, generator, dtype, device) for p in defs_])
 
 
 def abstract_params(defs: Tree, dtype) -> Tree:
@@ -112,4 +118,4 @@ def param_axes(defs: Tree) -> Tree:
 
 
 def count_params(defs: Tree) -> int:
-    return sum(math.prod(p.shape) for _, p in _leaves(defs))
+    return sum(math.prod(p.shape) for _, p in flatten(defs))

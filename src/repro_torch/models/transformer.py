@@ -1,35 +1,37 @@
-"""Decoder-only stacks: dense and VLM (the VLM prepends patch embeddings
-in ``model``; its stack is dense).
+"""Decoder-only stacks: dense, VLM (the VLM prepends patch embeddings in
+``model``; its stack is dense) and SSM (mamba).
 
 Parameters keep the reference's stacked layout — every leaf of
 ``stack`` is ``[L, ...]`` — so converting the reference's parameters is a
 copy.  Where the reference scans over the stack (``lax.scan``), the port
 runs a Python loop over layers, indexing layer ``l`` of every leaf (a
-view, no copy).  Decode caches are stacked ``[L, B, S_max, nkv, hd]`` and
-each layer writes its slice in place.
+view, no copy); with ``cfg.remat`` a training pass checkpoints each layer
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  Decode
+caches are stacked ``[L, ...]`` — attention ``{"k", "v"}`` of ``[L, B,
+S_max, nkv, hd]``, mamba ``{"conv", "h"}`` of ``[L, B, k-1, d_in]`` and
+``[L, B, d_in, N]`` — and each layer writes its slice in place.
 
-The SSM (mamba), MoE and hybrid stacks are later slices of the port; their
-branches raise ``NotImplementedError`` naming the ROADMAP item.
+The MoE and hybrid stacks are later slices of the port; their branches
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attn_defs, decode_attention, full_attention
 from .layers import mlp_block, mlp_defs, rms_norm
 from .params import P, Tree, tree_map_defs
+from .ssm import mamba_block, mamba_decode, mamba_defs
 
 Cache = Any
 
 _LATER = {
-    "mamba": "the SSM stack (models/ssm.py, kernel K4) is ROADMAP.md queue 1, "
-             "item 1 (the training slice)",
     "moe": "the MoE layer (models/moe.py) is ROADMAP.md queue 1, item 2",
-    "hybrid": "the hybrid stack needs models/ssm.py and models/moe.py: "
-              "ROADMAP.md queue 1, items 1 and 2",
+    "hybrid": "the hybrid stack needs models/moe.py: ROADMAP.md queue 1, item 2",
 }
 
 
@@ -57,8 +59,6 @@ def _check_ported(cfg: ModelConfig) -> Tuple[str, str]:
     if cfg.family == "hybrid":
         raise _not_ported("hybrid")
     mixer, ffn = _slot_kind(cfg, 0)
-    if mixer != "attn":
-        raise _not_ported("mamba")
     if ffn == "moe":
         raise _not_ported("moe")
     return mixer, ffn
@@ -66,7 +66,8 @@ def _check_ported(cfg: ModelConfig) -> Tuple[str, str]:
 
 def _one_layer_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     d = cfg.d_model
-    defs: dict = {"ln1": P((d,), ("d_model",), "ones"), mixer: attn_defs(cfg)}
+    defs: dict = {"ln1": P((d,), ("d_model",), "ones")}
+    defs[mixer] = attn_defs(cfg) if mixer == "attn" else mamba_defs(cfg)
     if ffn != "none":
         defs["ln2"] = P((d,), ("d_model",), "ones")
         defs[ffn] = mlp_defs(cfg)
@@ -108,22 +109,35 @@ def _index_tree(tree: Tree, i: int) -> Tree:
 # Layer application (single layer, given its params)
 # ---------------------------------------------------------------------------
 
-def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, ffn: str,
-                      collect_state: bool):
-    """→ (x, state): the layer's cache contribution {"k","v"} over the S
-    positions seen, or None."""
+def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
+                      ffn: str, collect_state: bool):
+    """→ (x, state): the layer's cache contribution — attn: {"k","v"} over
+    the S positions seen; mamba: {"conv","h"} final — or None."""
+    state = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, (k, v) = full_attention(lp["attn"], h, cfg, rope, causal=True)
+    if mixer == "attn":
+        y, (k, v) = full_attention(lp["attn"], h, cfg, rope, causal=True)
+        if collect_state:
+            state = {"k": k, "v": v}
+    elif collect_state:
+        y, state = mamba_block(lp["mamba"], h, cfg, return_state=True)
+    else:
+        y = mamba_block(lp["mamba"], h, cfg)
     x = x + y
     if ffn != "none":
         x = x + mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-    return x, ({"k": k, "v": v} if collect_state else None)
+    return x, state
 
 
-def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, ffn: str,
-                        cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
+                        ffn: str, cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, _, _ = decode_attention(lp["attn"], h, cfg, rope, cache["k"], cache["v"], pos)
+    if mixer == "attn":
+        y, _, _ = decode_attention(lp["attn"], h, cfg, rope, cache["k"], cache["v"], pos)
+    else:
+        y, conv_c, h_c = mamba_decode(lp["mamba"], h, cfg, cache["conv"], cache["h"])
+        cache["conv"].copy_(conv_c)
+        cache["h"].copy_(h_c)
     x = x + y
     if ffn != "none":
         x = x + mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
@@ -142,16 +156,28 @@ def apply_stack_full(
     collect_state: bool = False,
 ):
     """Full-sequence pass → (x, aux_loss, states_stacked | None).  The
-    auxiliary loss is the MoE balance term, zero for a dense stack."""
-    _, ffn = _check_ported(cfg)
+    auxiliary loss is the MoE balance term, zero for the dense and SSM
+    stacks.  With ``cfg.remat``, no state to collect and grad enabled,
+    each layer is checkpointed: its activations are recomputed in the
+    backward pass instead of kept."""
+    mixer, ffn = _check_ported(cfg)
+
+    def layer(lp, x):
+        return _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state)
+
+    remat = cfg.remat and not collect_state and torch.is_grad_enabled()
     states = []
     for li in range(cfg.n_layers):
-        x, st = _apply_layer_full(_index_tree(stack, li), x, cfg, rope, ffn, collect_state)
+        lp = _index_tree(stack, li)
+        if remat:
+            x, st = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x, st = layer(lp, x)
         states.append(st)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_state:
         return x, aux, None
-    stacked = {key: torch.stack([st[key] for st in states]) for key in ("k", "v")}
+    stacked = {key: torch.stack([st[key] for st in states]) for key in states[0]}
     return x, aux, stacked
 
 
@@ -165,9 +191,9 @@ def apply_stack_decode(
 ):
     """One-token pass → (x, caches); each layer writes its slice of the
     stacked caches in place, and the same dict is returned."""
-    _, ffn = _check_ported(cfg)
+    mixer, ffn = _check_ported(cfg)
     for li in range(cfg.n_layers):
-        x = _apply_layer_decode(_index_tree(stack, li), x, cfg, rope, ffn,
+        x = _apply_layer_decode(_index_tree(stack, li), x, cfg, rope, mixer, ffn,
                                 _index_tree(caches, li), pos)
     return x, caches
 
@@ -186,8 +212,19 @@ def _attn_cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Dict[str, P]:
     }
 
 
+def _mamba_cache_defs(cfg: ModelConfig, batch: int) -> Dict[str, P]:
+    return {
+        "conv": P((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                  ("batch", None, "d_inner"), "zeros"),
+        "h": P((batch, cfg.d_inner, cfg.ssm_state),
+               ("batch", "d_inner", "ssm_state"), "zeros"),
+    }
+
+
 def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Tree:
     """Declaration of the decode cache tree (P descriptors)."""
-    _check_ported(cfg)
-    return _stack(_attn_cache_defs(cfg, batch, s_max), cfg.n_layers)
+    mixer, _ = _check_ported(cfg)
+    one = (_attn_cache_defs(cfg, batch, s_max) if mixer == "attn"
+           else _mamba_cache_defs(cfg, batch))
+    return _stack(one, cfg.n_layers)
 

@@ -25,7 +25,8 @@ from repro.models import attention as ref_attention
 from repro.models.model import Model as RefModel
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels import _build, decode_attention, flash_attention, ops, ref, ts_plan_device
+from repro_torch.kernels import (_build, decode_attention, flash_attention, mamba_scan, ops, ref,
+                                 ts_plan_device)
 from repro_torch.models import attention
 
 FLASH_CASES = [
@@ -189,21 +190,34 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(fn):
             decode_attention.flash_decode_bhsd(q, k, k, 3)
 
 
-def test_mamba_scan_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.mamba_scan()
+def test_mamba_scan_computes_the_reference_function():
+    """``ops.mamba_scan`` (K4's wrapper, its plain version on the CPU) is
+    the reference's selective scan on the reference's first ``MAMBA_CASES``
+    shape; ``tests/test_torch_ssm.py`` covers the rest."""
+    b, s, d_in, n = 2, 256, 128, 8
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((b, s, d_in)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, d_in)))).astype(np.float32)
+    a = -np.exp(0.5 * rng.standard_normal((d_in, n))).astype(np.float32)
+    bm, cm = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
+    args = (x, dt, a, bm, cm)
+    got = ops.mamba_scan(*(torch.from_numpy(v) for v in args))
+    want = ref_ops.mamba_scan(*(jnp.asarray(v) for v in args), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
 
 
 def test_kernel_sources_registered_one_library_each():
     for name, fns in (("ts_plan", {"ts_plan_window", "ts_plan_columns", "ts_plan_dense"}),
                       ("flash_attention", {"flash_attention_fwd"}),
-                      ("decode_attention", {"flash_decode_fwd"})):
+                      ("decode_attention", {"flash_decode_fwd"}),
+                      ("mamba_scan", {"mamba_scan_fwd"})):
         sigs, _stats = _build._SOURCES[name]
         assert set(sigs) == fns
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build._library_path(name).name.startswith(f"lib{name}.")
     assert "--fmad=false" in _build.NVCC_FLAGS  # K1's exactness
     assert _build._SOURCES["ts_plan"][1] is ts_plan_device.stats
+    assert mamba_scan.stats["launches"] == 0  # no card here: never launched
     with pytest.raises(KeyError):
         _build.build(["no_such_source"])
 
@@ -225,7 +239,7 @@ def _layer0(arch, dtype, impl):
                                                       attn_impl=impl)
     jp = RefModel(ref_cfg).init(jax.random.PRNGKey(1))["stack"]["attn"]
     jp = jax.tree_util.tree_map(lambda a: a[0], jp)
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return cfg, ref_cfg, jp, tp
 
 

@@ -1,6 +1,9 @@
-"""The K1 kernel on the card: each gather form against its plain PyTorch
-version on CPU copies of the same inputs, and the scheduling slice on the
-``cuda`` backend against the numpy reference — bit for bit throughout.
+"""The kernels on the card.  K1: each gather form against its plain
+PyTorch version on CPU copies of the same inputs, and the scheduling slice
+on the ``cuda`` backend against the numpy reference — bit for bit
+throughout.  K2, K3: against their plain versions, and a full-width serve.
+K4: against its plain version, its input checks, and a full-width eval
+step through it against the plain scan.
 
 Every test here needs a Hopper card and skips without one.  On a machine
 with one: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -289,3 +292,94 @@ def test_two_layer_full_width_serve_on_the_card(card):
         assert flash_attention.stats["launches"] - launches == want
     assert tokens["pallas"] == tokens["xla"]
     assert all(len(t) == 6 for t in tokens["pallas"])
+
+
+MAMBA_CASES_CARD = [
+    # (B, S, d_in, N): the reference's MAMBA_CASES, shapes whose S and d_in
+    # are not powers of two (a ragged last chunk of time and of channels),
+    # every lane-group width (N 1..128), and the model's shape.
+    (2, 256, 128, 8),
+    (1, 512, 256, 16),
+    (2, 128, 512, 4),
+    (2, 100, 96, 16),
+    (3, 37, 24, 5),
+    (1, 70, 40, 1),
+    (1, 64, 32, 32),
+    (2, 33, 48, 64),
+    (1, 20, 16, 100),
+    (2, 1024, 8192, 16),
+]
+
+
+def _scan_inputs(rng, b, s, d_in, n, dev):
+    mk = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)  # noqa: E731
+    return (mk(rng.standard_normal((b, s, d_in))),
+            mk(np.log1p(np.exp(rng.standard_normal((b, s, d_in))))),
+            mk(-np.exp(0.5 * rng.standard_normal((d_in, n)))),
+            mk(rng.standard_normal((b, s, n))), mk(rng.standard_normal((b, s, n))))
+
+
+@pytest.mark.parametrize("case", MAMBA_CASES_CARD, ids=str)
+def test_mamba_scan_kernel_matches_plain(card, case):
+    """K4 against its plain version on the card, at the reference's atol
+    2e-4 (float32; the kernel rounds each product and sum as the plain
+    version does, but sums y over the states in another order)."""
+    from repro_torch.kernels import mamba_scan, ops, ref
+
+    inputs = _scan_inputs(np.random.default_rng(sum(case)), *case, card)
+    launches = mamba_scan.stats["launches"]
+    got = ops.mamba_scan(*inputs)
+    torch.cuda.synchronize()
+    assert mamba_scan.stats["launches"] == launches + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == case[:3]
+    want = ref.mamba_scan_ref(*inputs)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_mamba_scan_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import mamba_scan
+
+    inputs = _scan_inputs(np.random.default_rng(0), 1, 16, 8, 4, card)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError, match="float32"):
+            mamba_scan.mamba_scan_blocked(*(t.to(dtype) for t in inputs))
+    with pytest.raises(ValueError, match="only all-CPU"):
+        mamba_scan.mamba_scan_blocked(inputs[0].cpu(), *inputs[1:])
+    with pytest.raises(ValueError, match="only all-CPU"):
+        mamba_scan.mamba_scan_blocked(*inputs[:2], inputs[2].cpu(), *inputs[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan.mamba_scan_blocked(inputs[0].transpose(1, 2).contiguous().transpose(1, 2),
+                                      *inputs[1:])
+    with pytest.raises(ValueError, match="state dim"):
+        big = _scan_inputs(np.random.default_rng(0), 1, 16, 8, 129, card)
+        mamba_scan.mamba_scan_blocked(*big)
+
+
+def test_two_layer_full_width_eval_through_k4(card):
+    """falcon-mamba-7b at full width, 2 layers, float32: the eval step's
+    loss through K4 (one launch per layer) equals the plain scan's to
+    float32 rounding, and a train step through K4 raises, as in the
+    reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.launch.steps import make_eval_step, make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("falcon-mamba-7b").with_(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=card).manual_seed(0), card)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 256))
+    batch = {"tokens": torch.as_tensor(toks, device=card)}
+    losses = {}
+    for impl in ("pallas", "xla"):
+        launches = mamba_scan.stats["launches"]
+        losses[impl] = float(make_eval_step(Model(cfg.with_(ssm_impl=impl)))(params, batch)["loss"])
+        assert mamba_scan.stats["launches"] - launches == (2 if impl == "pallas" else 0)
+    assert np.isfinite(losses["pallas"])
+    assert abs(losses["pallas"] - losses["xla"]) <= 1e-4
+    model = Model(cfg.with_(ssm_impl="pallas"))
+    opt = AdamW()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        make_train_step(model, opt)(params, opt.init(params), batch)

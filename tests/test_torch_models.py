@@ -29,7 +29,7 @@ DENSE = ["mistral-nemo-12b", "qwen3-32b", "starcoder2-3b", "tiny"]
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "qwen3-32b", "starcoder2-3b",
-                                  "internvl2-1b"])
+                                  "internvl2-1b", "falcon-mamba-7b"])
 def test_declaration_matches_reference(arch):
     cfg, ref_cfg = _configs(arch)
     model, ref_model = Model(cfg), RefModel(ref_cfg)
@@ -86,8 +86,22 @@ def test_init_caches_match_reference():
         assert not bool(got[name].any())
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "falcon-mamba-7b",
-                                  "moonshot-v1-16b-a3b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "mistral-nemo-12b"])
+def test_declaration_matches_reference_at_full_size(arch):
+    """The full-size declaration (shapes, logical axes, parameter count)
+    equals the reference's, on the meta device and through the reference's
+    abstract shapes: nothing is allocated."""
+    from repro.configs import get_config as ref_get_config
+
+    model, ref_model = Model(get_config(arch)), RefModel(ref_get_config(arch))
+    ref_abs = jax.tree_util.tree_map(lambda a: tuple(a.shape), ref_model.abstract())
+    port_abs = jax.tree_util.tree_map(lambda t: tuple(t.shape), model.abstract())
+    assert port_abs == ref_abs
+    assert model.axes() == ref_model.axes()
+    assert count_params(model.defs()) == ref_count_params(ref_model.defs())
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "moonshot-v1-16b-a3b", "whisper-base"])
 def test_later_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch, smoke=True)).defs()

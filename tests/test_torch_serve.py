@@ -55,7 +55,8 @@ def _pair(arch, dtype="float32", impl="xla", seed=0):
                             attn_impl=impl, remat=False)
     ref_model = RefModel(ref_cfg)
     jp = ref_model.init(jax.random.PRNGKey(seed))
-    return Model(cfg), params_from_jax(jax.tree_util.tree_map(np.asarray, jp)), ref_model, jp
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return Model(cfg), tp, ref_model, jp
 
 
 def _f32(x):
