@@ -24,9 +24,13 @@ result lines are printed:
               reroute logs identical to the ``numpy`` backend's.
 5. attention — flash attention (K2) and flash decode (K3) against their
               plain PyTorch versions on the card, on the reference's test
-              shapes and the model's, in float32 (atol 2e-5) and bfloat16
-              (atol 2e-2); their times at the model's shapes beside the
-              plain versions', the bound and one PyTorch library call.
+              shapes, the edges of their tiling and splitting, and the
+              model's shapes, in float32 (atol 2e-5) and bfloat16
+              (atol 2e-2), K2's bfloat16 path also against the plain
+              version of its own rounding of P (``DESIGN_TOL``); their
+              times at the model's shapes beside the plain versions', the
+              bound and one PyTorch library call, by CUDA events and, per
+              kernel, by ``torch.profiler``.
 6. serve    — mistral-nemo-12b at full width and depth (bf16, seeded random
               parameters): two ``ServeEngine`` replicas behind a
               ``BassRouter`` serve 8 requests of 512 prompt tokens and 16
@@ -484,13 +488,54 @@ def phase_failure():
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (B, S, nq, nkv, hd): tests/test_kernels.py's FLASH_CASES and DECODE_CASES
-# (with their pos), then the model's shapes — mistral-nemo-12b's prefill of
-# a 512-token prompt and its decode over 4 slots of a 1 024-position cache.
+# (with their pos); the designs' edges — K2 with one partial key tile
+# (S 40), a ragged last tile (S 96), S not a multiple of 256 (384) and
+# g = 7, K3 with pos on a chunk boundary (640 live keys: 10 chunks of 64 on
+# 132 SMs), at S - 1, at 0 and over a 4 096-position cache; then the
+# model's shapes — mistral-nemo-12b's prefill of a 512-token prompt and its
+# decode over 4 slots of a 1 024-position cache.
 FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 6, 2, 64),
-                (1, 512, 4, 4, 128), (1, 128, 14, 2, 64), (1, 512, 32, 8, 128)]
+                (1, 512, 4, 4, 128), (1, 128, 14, 2, 64),
+                (1, 40, 4, 2, 64), (1, 40, 4, 2, 128), (2, 96, 4, 2, 64),
+                (1, 96, 8, 2, 128), (1, 384, 8, 2, 128), (1, 128, 14, 2, 128),
+                (1, 512, 32, 8, 128)]
 DECODE_SHAPES = [(2, 512, 4, 2, 64, 137), (1, 1024, 8, 8, 128, 1023),
                  (2, 256, 6, 2, 64, 0), (1, 512, 16, 16, 64, 300),
+                 (4, 1024, 32, 8, 128, 639), (4, 1024, 32, 8, 128, 1023),
+                 (4, 1024, 32, 8, 128, 0), (4, 4096, 32, 8, 128, 4095),
                  (4, 1024, 32, 8, 128, 600)]
+# K2's bfloat16 path is also held against the plain version of its own
+# arithmetic, ``ref.attention_ref(..., p_dtype=bfloat16, p_block=64)`` (P
+# rounded to bf16 against the running max of each 64-key tile): |got - want|
+# <= rtol |want| + atol, rtol one bf16 ulp at the bottom of a binade.  The
+# scores' float32 sums differ in order, which flips a rare rounding of P;
+# atol covers those flips (largest reading on the H100: 3.5e-4).
+DESIGN_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -10)
+ATTN_DESIGNS = {
+    "flash_attention": "bf16: wgmma for Q.K^T and P.V (P rounded to bf16 in registers), "
+                       "k/v by TMA into a 2-stage mbarrier ring fed by a producer warp, "
+                       "64-row q tiles x 64-key tiles, softmax with pairwise reductions "
+                       "and ex2; f32: CUDA cores (first design)",
+    "flash_decode": "split-key: (chunk, kv head, batch) blocks serve all g heads, "
+                    "32-key tiles by 16-byte cp.async in a 2-stage ring, f32 partials, "
+                    "then a merge kernel",
+}
+
+
+def _profiled_per_call(kernel, library, reps=20):
+    """Device time per call by ``torch.profiler`` (L2 warm, ``reps`` calls
+    back to back): for the kernel's wrapper and for the library call, the
+    summed time of every kernel and copy the call runs, and each by name.
+    Beside the CUDA-event times, which hold each call with its launches."""
+    out = {}
+    for key, fn in (("profiled", kernel), ("library_profiled", library)):
+        fn()
+        _, prof = _profiled(lambda: [fn() for _ in range(reps)])
+        out[key] = dict(ms_per_call=prof["device_s"] * 1e3 / reps, reps=reps,
+                        ops_per_call=prof["device_ops"] / reps,
+                        kernels=[dict(name=t["name"], ms_per_call=t["ms"] / reps,
+                                      count=t["count"]) for t in prof["top"]])
+    return out
 
 
 def _attn_inputs(rng, b, s, sq, nq, nkv, hd, dtype, dev):
@@ -511,11 +556,13 @@ def phase_attention():
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import KEY_TILE_BF16
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     cuda = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     err = {"flash_attention": 0.0, "flash_decode": 0.0}
+    design = dict(max_abs_err=0.0, atol_needed=0.0, **DESIGN_TOL)
     fails, checked = [], 0
     for dtype in ("float32", "bfloat16"):
         for b, s, nq, nkv, hd in FLASH_SHAPES:
@@ -527,6 +574,16 @@ def phase_attention():
             checked += 1
             if not e <= ATTN_TOL[dtype]:
                 fails.append(f"flash_attention {dtype} {(b, s, nq, nkv, hd)}: {e}")
+            if dtype == "bfloat16":
+                want = ref.attention_ref(*_bhsd(q, k, v), causal=True, p_dtype=torch.bfloat16,
+                                         p_block=KEY_TILE_BF16).transpose(1, 2).float()
+                diff = (got.float() - want).abs()
+                need = float((diff - DESIGN_TOL["rtol"] * want.abs()).max())
+                design["max_abs_err"] = max(design["max_abs_err"], float(diff.max()))
+                design["atol_needed"] = max(design["atol_needed"], need)
+                if not need <= DESIGN_TOL["atol"]:
+                    fails.append(f"flash_attention bf16 design {(b, s, nq, nkv, hd)}: "
+                                 f"max |d| {float(diff.max())}, atol needed {need}")
         for b, s, nq, nkv, hd, pos in DECODE_SHAPES:
             q, k, v = _attn_inputs(rng, b, s, 1, nq, nkv, hd, dtype, cuda)
             got = ops.flash_decode(q, k, v, pos)
@@ -562,7 +619,10 @@ def phase_attention():
         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True), [B, H, S, hd] inputs",
         bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes, flops=flops,
-        max_abs_err=err["flash_attention"])
+        max_abs_err=err["flash_attention"], design_check=design,
+        **_profiled_per_call(lambda: ops.flash_attention(q, k, v, causal=True),
+                             lambda: F.scaled_dot_product_attention(
+                                 qb, kb, vb, is_causal=True, enable_gqa=True)))
     # K3 at the model's decode shape, bf16.
     b, s, nq, nkv, hd, pos = DECODE_SHAPES[-1]
     q, k, v = _attn_inputs(rng, b, s, 1, nq, nkv, hd, "bfloat16", cuda)
@@ -582,7 +642,10 @@ def phase_attention():
         library="torch.nn.functional.scaled_dot_product_attention(attn_mask=keys <= pos, "
                 "enable_gqa=True), [B, H, S, hd] inputs",
         bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes, flops=flops,
-        max_abs_err=err["flash_decode"])
+        max_abs_err=err["flash_decode"],
+        **_profiled_per_call(lambda: ops.flash_decode(q, k, v, pos),
+                             lambda: F.scaled_dot_product_attention(
+                                 qb, kb, vb, attn_mask=mask, enable_gqa=True)))
     log("attention", checked=checked, tolerance=ATTN_TOL, **timing)
     return timing
 
@@ -595,7 +658,8 @@ SERVE = dict(arch="mistral-nemo-12b", replicas=2, slots=4, s_max=1024,
 # on the kernel path and on the plain path, each held against the same
 # prefill computed in float32 throughout (the bf16 weights upcast layer by
 # layer).  The plain path rounds the scores and the probabilities to bf16,
-# as the reference's XLA path does; the kernel keeps them in float32.  A
+# as the reference's XLA path does; the kernel keeps the scores in float32
+# and rounds only the probabilities that enter P.V.  A
 # fault in the kernel shows as an error of the logits' own size; so the
 # kernel path must be no farther from the float32 logits than the plain
 # path is.
@@ -990,7 +1054,10 @@ def _attention_entry(name, t, launches):
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+             "design": ATTN_DESIGNS[name],
+             "profiled_ms": t["profiled"]["ms_per_call"],
+             "library_profiled_ms": t["library_profiled"]["ms_per_call"]}
     if name == "flash_decode":
         entry["launches_note"] = ("not on the serve path: the model's decode takes "
                                   "the plain path, as the reference's does")

@@ -15,7 +15,9 @@ and fail on both packages, whatever tiling the CUDA kernel uses inside.
 The kernel takes float32 or bfloat16 and head dims 64 and 128; inputs may
 be strided in batch, head and sequence (the head dim contiguous), so the
 model's ``[B, S, H, hd]`` tensors go in as transposed views without a copy,
-and the output takes q's layout.
+and the output takes q's layout.  The bfloat16 path loads by TMA, which
+needs 16-byte aligned base addresses and strides: the wrapper raises a
+``ValueError`` on any other (the model's tensors always are aligned).
 """
 from __future__ import annotations
 
@@ -28,6 +30,10 @@ from . import _build, ref
 
 NEG_INF = ref.NEG_INF
 HEAD_DIMS = (64, 128)
+#: Keys per tile of the bfloat16 (tensor-core) path, ``kTile`` in its source:
+#: it rounds each tile's probabilities against the running row max, as
+#: ``ref.attention_ref(..., p_dtype=torch.bfloat16, p_block=KEY_TILE_BF16)``.
+KEY_TILE_BF16 = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: ``launches``: kernel launches (CUDA tensors only).
@@ -57,6 +63,16 @@ def check_cuda_inputs(name: str, q: torch.Tensor, **others) -> None:
     for key, t in dict(q=q, **others).items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {key}'s head dim is not contiguous")
+
+
+def check_aligned(name: str, **tensors) -> None:
+    """Base addresses and batch, head and sequence strides that are whole
+    multiples of 16 bytes, as TMA and 16-byte vector loads need."""
+    for key, t in tensors.items():
+        elt = t.element_size()
+        if t.data_ptr() % 16 or any(st * elt % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {key}'s base address or strides are not "
+                             "16-byte aligned")
 
 
 def scale_f32(hd: int) -> float:
@@ -89,6 +105,8 @@ def flash_attention_bhsd(
     check_cuda_inputs("flash_attention", q, k=k, v=v)
     if tuple(k.shape) != (b, nkv, sk, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)  # q's layout: a transposed view stays one
     err = _build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

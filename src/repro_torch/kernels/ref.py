@@ -8,6 +8,13 @@ mask with ``NEG_INF = -1e30`` as the reference does (not ``-inf``).  The
 mamba oracle is a Python loop over time on a ``[B, d_in, N]`` float32
 state.  All run on any device.  The kernel wrappers use them for tensors
 on the CPU only; on the card's paths nothing calls them.
+
+Two more spell out the arithmetic of the kernels' designs, for the checks
+of the kernels and their tests only: ``attention_ref(...,
+p_dtype=torch.bfloat16, p_block=64)`` rounds the probabilities before P.V
+as K2's tensor-core path does, each key tile's against the running row
+max, and :func:`decode_split_ref` computes K3's per-chunk partials and
+their merge.
 """
 from __future__ import annotations
 
@@ -24,7 +31,15 @@ def attention_ref(
     v: torch.Tensor,            # [B, nkv, Sk, hd]
     causal: bool = True,
     pos: Optional[Union[int, torch.Tensor]] = None,
+    p_dtype: Optional[torch.dtype] = None,
+    p_block: Optional[int] = None,
 ) -> torch.Tensor:
+    """With ``p_dtype``, the unnormalised probabilities exp(s - m) enter
+    P.V rounded to it, and are summed for the divide unrounded.  m is the
+    row max; with ``p_block``, the running row max over the blocks of
+    ``p_block`` keys up to each key's own, as a flash kernel that walks the
+    keys in blocks rounds them, each block's products then rescaled by
+    e^(m - row max) in float32."""
     b, nq, sq, hd = q.shape
     nkv, sk = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -36,14 +51,60 @@ def attention_ref(
         s = torch.where(ki <= qi, s, NEG_INF)
     if pos is not None:
         s = torch.where(ki <= pos, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    if p_dtype is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        mj = m
+        if p_block is not None:
+            nb = -(-sk // p_block)
+            blocks = torch.nn.functional.pad(s, (0, nb * p_block - sk), value=NEG_INF)
+            run = blocks.unflatten(-1, (nb, p_block)).amax(dim=-1).cummax(dim=-1).values
+            mj = run.repeat_interleave(p_block, dim=-1)[..., :sk]
+        e, w = torch.exp(s - mj), torch.exp(mj - m)
+        out = torch.einsum("bkgqs,bksh->bkgqh", e.to(p_dtype).float() * w, v.float())
+        out = out / (e * w).sum(dim=-1, keepdim=True)
     return out.reshape(b, nq, sq, hd).to(q.dtype)
 
 
 def decode_ref(q, k, v, pos):
     """q [B,nq,1,hd] vs cache [B,nkv,S,hd], valid positions ≤ pos."""
     return attention_ref(q, k, v, causal=False, pos=pos)
+
+
+def decode_split_ref(q, k, v, pos: int, splits: int, chunk: int) -> torch.Tensor:
+    """K3's split-key arithmetic: q [B,nq,1,hd] vs cache [B,nkv,S,hd].  The
+    live keys [0, min(pos + 1, S)) are cut into ``splits`` chunks of
+    ``chunk`` keys, as ``decode_attention.split_plan`` gives them to the
+    kernel.  Each chunk gives (m, l, acc) over its live keys (m = -1e30,
+    l = 0, acc = 0 where it holds none); the merge rescales each by
+    e^(m - M), M the largest m, and divides the summed acc by the summed l
+    where it is > 0."""
+    b, nq, _, hd = q.shape
+    nkv, sk = k.shape[1], k.shape[2]
+    g = nq // nkv
+    kend = min(pos + 1, sk)
+    qg = q.reshape(b, nkv, g, hd).float() * float(1.0 / hd ** 0.5)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, kend)
+        if hi <= lo:
+            ms.append(torch.full((b, nkv, g, 1), NEG_INF, device=q.device))
+            ls.append(torch.zeros((b, nkv, g, 1), device=q.device))
+            accs.append(torch.zeros((b, nkv, g, hd), device=q.device))
+            continue
+        sc = torch.einsum("bkgh,bksh->bkgs", qg, k[:, :, lo:hi].float())
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bkgs,bksh->bkgh", p, v[:, :, lo:hi].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(dim=0))
+    lsum, out = (w * l).sum(dim=0), (w * acc).sum(dim=0)
+    out = out / torch.where(lsum > 0, lsum, torch.ones_like(lsum))
+    return out.reshape(b, nq, 1, hd).to(q.dtype)
 
 
 def mamba_scan_ref(

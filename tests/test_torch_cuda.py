@@ -180,6 +180,12 @@ def test_multipath_and_switch_kill_on_the_card_match_numpy(card):
 # -- K2 and K3 ---------------------------------------------------------------------
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# K2's bf16 path against the plain version of its own arithmetic (P rounded
+# to bf16 against the running max of each 64-key tile): |got - want| <=
+# rtol |want| + atol, rtol one bf16 ulp at the bottom of a binade.  The
+# scores' float32 sums differ in order, which flips a rare rounding of P;
+# atol covers those flips (largest reading on the H100: 3.5e-4).
+DESIGN_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -10)
 
 FLASH_CASES_CARD = [
     # (B, S, nq, nkv, hd, dtype, causal): the reference's FLASH_CASES, the
@@ -194,6 +200,19 @@ FLASH_CASES_CARD = [
     (1, 32, 4, 2, 64, torch.float32, True),
     (2, 96, 4, 1, 128, torch.bfloat16, True),
     (1, 256, 4, 2, 128, torch.float32, False),
+    # The tensor-core path (bf16): hd 64 and 128 at S 40 (one partial
+    # tile), 96 (a ragged last tile) and 384 (not a multiple of 256); the
+    # non-causal form; g = 7.
+    (1, 40, 4, 2, 64, torch.bfloat16, True),
+    (1, 40, 4, 2, 128, torch.bfloat16, True),
+    (2, 96, 4, 2, 64, torch.bfloat16, True),
+    (1, 96, 8, 2, 128, torch.bfloat16, True),
+    (1, 384, 4, 2, 64, torch.bfloat16, True),
+    (1, 384, 8, 2, 128, torch.bfloat16, True),
+    (2, 96, 4, 2, 64, torch.bfloat16, False),
+    (1, 256, 4, 2, 128, torch.bfloat16, False),
+    (1, 128, 14, 2, 64, torch.bfloat16, True),
+    (1, 128, 14, 2, 128, torch.bfloat16, True),
 ]
 
 DECODE_CASES_CARD = [
@@ -204,6 +223,14 @@ DECODE_CASES_CARD = [
     (2, 256, 6, 2, 64, 0),
     (1, 512, 16, 16, 64, 300),
     (4, 1024, 32, 8, 128, 600),
+    # The split-key design at the model's widths: pos on a chunk boundary
+    # (640 live keys make 10 chunks of 64 on 132 SMs), pos = S - 1, pos = 0,
+    # and a 4 096-position cache.
+    (4, 1024, 32, 8, 128, 639),
+    (4, 1024, 32, 8, 128, 1023),
+    (4, 1024, 32, 8, 128, 0),
+    (4, 4096, 32, 8, 128, 4095),
+    (4, 4096, 32, 8, 128, 2047),
 ]
 
 
@@ -228,6 +255,12 @@ def test_flash_attention_kernel_matches_plain(card, case):
     want = ref.attention_ref(*(t.cpu().transpose(1, 2) for t in (q, k, v)), causal=causal)
     err = (got.cpu().float() - want.transpose(1, 2).float()).abs().max()
     assert float(err) <= ATTN_TOL[dtype]
+    if dtype == torch.bfloat16:
+        want = ref.attention_ref(*(t.cpu().transpose(1, 2) for t in (q, k, v)), causal=causal,
+                                 p_dtype=torch.bfloat16, p_block=flash_attention.KEY_TILE_BF16)
+        want = want.transpose(1, 2).float()
+        over = (got.cpu().float() - want).abs() - DESIGN_TOL["rtol"] * want.abs()
+        assert float(over.max()) <= DESIGN_TOL["atol"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -247,6 +280,58 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     want = ref.decode_ref(*(t.cpu().transpose(1, 2) for t in (q, k, v)), pos)
     err = (got.cpu().float() - want.transpose(1, 2).float()).abs().max()
     assert float(err) <= ATTN_TOL[dtype]
+
+
+def test_flash_attention_takes_the_models_strided_views(card):
+    """q, k and v as the model holds them, [B, S, H, hd] slices of one fused
+    projection, go through ``ops.flash_attention`` as transposed views
+    without a copy, and the output comes back in the model's layout."""
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    b, s, nq, nkv, hd = 1, 512, 32, 8, 128
+    rng = np.random.default_rng(5)
+    qkv = _normal(rng, (b, s, nq + 2 * nkv, hd), torch.bfloat16, card)
+    q, k, v = qkv.split([nq, nkv, nkv], dim=2)
+    assert not q.is_contiguous() and q.stride(1) == (nq + 2 * nkv) * hd
+    launches = flash_attention.stats["launches"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.stats["launches"] == launches + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = ref.attention_ref(*(t.cpu().transpose(1, 2) for t in (q, k, v)), causal=True)
+    err = (got.cpu().float() - want.transpose(1, 2).float()).abs().max()
+    assert float(err) <= ATTN_TOL[torch.bfloat16]
+
+
+def test_flash_decode_before_the_first_position_gives_zeros(card):
+    """pos < 0: no key counts, l stays 0, and the guarded divide gives
+    zeros, as the reference kernel does."""
+    from repro_torch.kernels import decode_attention, ops
+
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _normal(rng, (2, 1, 8, 128), dtype, card)
+        k = _normal(rng, (2, 256, 2, 128), dtype, card)
+        launches = decode_attention.stats["launches"]
+        got = ops.flash_decode(q, k, k, -1)
+        torch.cuda.synchronize()
+        assert decode_attention.stats["launches"] == launches + 1
+        assert torch.equal(got.cpu().float(), torch.zeros(got.shape))
+
+
+def test_attention_kernels_refuse_misaligned_views(card):
+    """TMA (K2, bf16) and K3's 16-byte loads need 16-byte aligned bases."""
+    from repro_torch.kernels import ops
+
+    flat = torch.zeros(1 + 64 * 4 * 64, device=card, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 64, 4, 64)  # base 2 bytes past an aligned one
+    good = torch.zeros((1, 64, 4, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(odd, good[:, :, :2], good[:, :, :2])
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(good, odd[:, :, :2], good[:, :, :2])
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_decode(good[:, :1], odd, good, 10)
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(card):
