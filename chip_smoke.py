@@ -13,15 +13,23 @@ result lines are printed:
               nvcc per source, all started together.
 2. kernels  — the planning-scan kernel (K1) in all three gather forms against
               its plain PyTorch version on CPU copies of the same seeded
-              non-dyadic inputs, bit for bit; its time at the main path's
-              shape beside the plain version's and the card's bound.
+              non-dyadic inputs, bit for bit, over a sweep of shapes and
+              the failure path's (n 1..48, L 1 and 6, W 64..4 096); its
+              time at the fleet path's shape beside the plain version's
+              and the card's bound; the latency of one dependent float64
+              add and the time of an empty launch (probes in
+              ``csrc/ts_plan.cu``).
 3. main     — BASS wavefront placement of 40 000 tasks on a 4 096-host fleet
               through ``ClusterController``, on the ``cuda`` backend (ledger
               mirror on the card) and on ``numpy``; the schedules must be
               byte-identical and every wave must have launched the kernel.
 4. failure  — a k=8 fat-tree with a core switch killed mid-stream; the
               reroute engine's column scans run on the card; schedules and
-              reroute logs identical to the ``numpy`` backend's.
+              reroute logs identical to the ``numpy`` backend's.  The
+              ``(n, L, W)`` of every column launch of the ``cuda`` leg, as
+              a histogram; K1's column form timed at the commonest shape
+              and at the widest W, each beside its bound (bytes, or the
+              chain of W dependent adds at the probed latency).
 5. attention — flash attention (K2) and flash decode (K3) against their
               plain PyTorch versions on the card, on the reference's test
               shapes, the edges of their tiling and splitting, and the
@@ -42,7 +50,9 @@ result lines are printed:
 7. train    — (a) the selective scan (K4) against its plain PyTorch version
               on the card, on the reference's test shapes and the model's,
               in float32 (atol 2e-4); its time at the model's shape beside
-              the plain version's and the bound.  falcon-mamba-7b at full
+              the plain version's and the bound, and the special-function
+              units' measured ex2 rate (probe in ``csrc/mamba_scan.cu``).
+              falcon-mamba-7b at full
               width, 16 of its 64 layers (bf16, seeded random parameters,
               2 × 1 024 seeded tokens): (b) ``make_eval_step`` through K4
               (one launch per layer) and through the plain time loop, the
@@ -59,6 +69,13 @@ result lines are printed:
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
 full report goes to ``build/chip_smoke.json``.
+
+    python3 chip_smoke.py --kernel-times
+
+builds the kernels and prints only K1's times (fleet shape, the failure
+leg's commonest and widest launch shapes) and K4's, as one JSON line (and
+``build/kernel_times.json``): copied into two trees, it compares their
+kernels in one call.
 """
 from __future__ import annotations
 
@@ -204,12 +221,20 @@ def _dense_case(rng, n, L, W):
     return booked, caps, secs, sizes, overlay
 
 
+# The failure path's column scans: a reroute round's live candidates (a few
+# to a few dozen rows), up to a fat tree's path length, and W = 64
+# escalating ×4 (core/reroute.py); W 4 096 runs past one shared tile.
+FAILURE_SHAPES = [(n, L, W) for n in (1, 3, 17, 48) for L in (1, 6)
+                  for W in (64, 256, 1024, 4096)]
+
+
 def _shapes():
     for W in (1, 16, 64, 200, 1024, 4096, 65536):
         ns = (1, 9, 33, 1024) if W <= 200 else ((1, 9, 33) if W == 1024 else (1, 9))
         for n in ns:
             for L in (1, 4, 9):
                 yield n, L, W
+    yield from FAILURE_SHAPES
 
 
 def _time_ms(fn, reps=50, flush=None):
@@ -284,9 +309,79 @@ def phase_kernels():
     if fails:
         raise AssertionError(f"{len(fails)} of {checked} kernel outputs differ "
                              f"from the plain version: {fails[:5]}")
+    probes = _k1_probes(cuda)
+    timing = _k1_window_timing(cuda, probes)
+    log("kernels", checked=checked, bitwise=True, max_abs_err=max_err, **probes, **timing)
+    return dict(checked=checked, max_abs_err=max_err, **probes, **timing)
 
-    # Timing at the main path's shape: one wave of the fleet run gathers
-    # n≈1 000 candidates × L=4 links × w=64 slots from a 4 112 × 8 192 mirror.
+
+def _k1_probes(cuda):
+    """The latency of one dependent float64 add (the in-order sum's chain)
+    by a ``clock64`` / ``%globaltimer`` loop, and the time of an empty
+    launch by the same events as the kernel's: the probes of
+    ``csrc/ts_plan.cu``.  Empty where the library has none."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("ts_plan")
+    if not hasattr(lib, "ts_plan_probe_dadd"):
+        return {}
+    dadd, empty = lib.ts_plan_probe_dadd, lib.ts_plan_probe_empty
+    dadd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+    empty.argtypes = [ctypes.c_void_p]
+    dadd.restype = empty.restype = ctypes.c_int
+
+    def ok(err):
+        if err != 0:
+            raise RuntimeError(f"probe launch failed: CUDA error {err}")
+
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.ones(2, dtype=torch.float64, device=cuda)
+    out = torch.zeros(1, dtype=torch.float64, device=cuda)
+    t = torch.zeros(2, dtype=torch.int64, device=cuda)
+    iters = 1 << 20
+    for _ in range(3):
+        ok(dadd(x.data_ptr(), out.data_ptr(), t.data_ptr(), iters, stream))
+    torch.cuda.synchronize()
+    cycles, ns = t.tolist()
+    if float(out) != 1.0 + iters:
+        raise AssertionError(f"dadd probe summed to {float(out)}, not {1 + iters}")
+    return dict(dadd_latency_cycles=cycles / iters, dadd_latency_ns=ns / iters,
+                empty_launch_ms=_time_ms(lambda: ok(empty(stream))))
+
+
+def _k1_bound(n, L, W, form, probes):
+    """The least time of one scan launch: the bytes it must move at the
+    memory rate, its float64 operations at their peak rate, and the
+    dependent chain of W adds at one add's latency, the largest."""
+    gathered = n * L * W + n * L
+    per_row = {"window": 6, "columns": 2}[form]  # caps, sizes (+ off, first, sz, t0; end)
+    per_slot = {"window": 0, "columns": 2}[form]  # cols, secs
+    nbytes = 8 * (gathered + n * per_row + n * per_slot * W + 3 * n * W + n
+                  + (n if form == "window" else 0))
+    flops = n * W * (L + 4) + 8 * n
+    bound_s = {"bytes": nbytes / HBM_BYTES_S, "operations": flops / F64_FLOP_S}
+    if "dadd_latency_ns" in probes:
+        bound_s["chain"] = W * probes["dadd_latency_ns"] * 1e-9
+    by = max(bound_s, key=bound_s.get)
+    return dict(bound_ms=bound_s[by] * 1e3, bound_by=by,
+                bound_ms_each={k: v * 1e3 for k, v in bound_s.items()},
+                bytes=nbytes, flops=flops)
+
+
+def _k1_window_timing(cuda, probes):
+    """K1's window form at the fleet path's shape: one wave gathers n≈1 000
+    candidates × L=4 links × w=64 slots from a 4 112 × 8 192 mirror."""
+    import torch
+
+    from repro_torch.kernels import ts_plan, ts_plan_device as dev
+
+    rng = np.random.default_rng(SEED + 1)
+    up = lambda x, dt, d: torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=d)  # noqa: E731
+    f64, i64 = torch.float64, torch.int64
     n, L, W, R, Wm, dur = 1024, 4, 64, 4112, 8192, 0.1
     M = up(rng.random((R, Wm)), f64, cuda)
     pad = up(rng.integers(0, R, size=(n, L)), i64, cuda)
@@ -307,16 +402,16 @@ def phase_kernels():
     for _ in range(5):
         ts_plan.wave_scan_torch(*cpu_args)
     plain_cpu_ms = (time.perf_counter() - c0) / 5 * 1e3
-    bytes_moved = 8 * (n * L * W + n * L + 6 * n + 3 * n * W + 2 * n)
-    flops = n * W * (L + 4) + 8 * n
-    bound_s = {"bytes": bytes_moved / HBM_BYTES_S, "operations": flops / F64_FLOP_S}
-    bound_by = max(bound_s, key=bound_s.get)
-    timing = dict(shape=[n, L, W], mirror=[R, Wm], ms=ms, ms_l2_warm=ms_warm,
-                  plain_ms=plain_ms, plain_cpu_ms=plain_cpu_ms,
-                  bound_ms=bound_s[bound_by] * 1e3, bound_by=bound_by,
-                  bytes=bytes_moved, flops=flops)
-    log("kernels", checked=checked, bitwise=True, max_abs_err=max_err, **timing)
-    return dict(checked=checked, max_abs_err=max_err, **timing)
+    # bound_ms / bound_by: bytes against operations at their peak rates;
+    # with_chain: the dependent chain of W adds beside them.
+    bound = _k1_bound(n, L, W, "window", {})
+    chain = _k1_bound(n, L, W, "window", probes)
+    return dict(shape=[n, L, W], mirror=[R, Wm], ms=ms, ms_l2_warm=ms_warm,
+                plain_ms=plain_ms, plain_cpu_ms=plain_cpu_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bytes=bound["bytes"], flops=bound["flops"],
+                with_chain=dict(bound_ms=chain["bound_ms"], bound_by=chain["bound_by"],
+                                bound_ms_each=chain["bound_ms_each"]))
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -429,12 +524,14 @@ def phase_main_path():
 # -- phase 4 -------------------------------------------------------------------
 
 
-def _failure_leg(backend: str, k=8, n_tasks=3000):
+def _failure_leg(backend: str, k=8, n_tasks=3000, shapes=None):
     """Sources in the lower pods, workers in the upper ones, so every shard
     crosses the core; half the tasks are placed, core0_0 dies under their
-    transfers, then the other half arrive on the degraded fabric."""
+    transfers, then the other half arrive on the degraded fabric.  With
+    ``shapes`` (a dict), the leg counts there the ``(n, L, W)`` of every
+    column-form launch, with its mirror's shape."""
     from repro_torch.core import ClusterController, Task, storage_hosts
-    from repro_torch.kernels import ts_plan
+    from repro_torch.kernels import ts_plan, ts_plan_device
     from repro_torch.net import fat_tree_fabric
 
     fab = fat_tree_fabric(k, link_mbps=100.0)
@@ -448,23 +545,35 @@ def _failure_leg(backend: str, k=8, n_tasks=3000):
         for i in range(n_tasks)
     ]
     idle = {w: float(rng.uniform(0, 2.0)) for w in workers}
+    scan_columns = ts_plan_device.scan_columns
+    if shapes is not None:
+        def recording(M, pad, cols, *rest):
+            key = (pad.shape[0], pad.shape[1], cols.shape[1])
+            count, mirrors = shapes.get(key, (0, set()))
+            shapes[key] = (count + 1, mirrors | {tuple(M.shape)})
+            return scan_columns(M, pad, cols, *rest)
+
+        ts_plan_device.scan_columns = recording
     ts_plan.set_backend(backend)
     _reset_counts()
     t0 = time.perf_counter()
-    ctrl = ClusterController(fab, workers, "bass", idle=idle, slot_duration=0.1)
-    half = n_tasks // 2
-    ctrl.submit(tasks[:half], at=0.0)
-    ctrl.run_until(0.0)
-    ctrl.fail_switch("core0_0", at=0.5)
-    ctrl.submit(tasks[half:], at=1.0)
-    ctrl.run()
+    try:
+        ctrl = ClusterController(fab, workers, "bass", idle=idle, slot_duration=0.1)
+        half = n_tasks // 2
+        ctrl.submit(tasks[:half], at=0.0)
+        ctrl.run_until(0.0)
+        ctrl.fail_switch("core0_0", at=0.5)
+        ctrl.submit(tasks[half:], at=1.0)
+        ctrl.run()
+    finally:
+        ts_plan_device.scan_columns = scan_columns
     dt = time.perf_counter() - t0
     stats, calls = _counts()
     return ctrl, dict(backend=backend, tasks=n_tasks, seconds=dt,
                       rerouted=len(ctrl.reroute_log), stats=stats, calls=calls)
 
 
-def phase_failure():
+def phase_failure(probes):
     from repro_torch.convert import canon
 
     def log_canon(c):
@@ -472,16 +581,78 @@ def phase_failure():
                  float(r.remaining).hex(), float(r.new_end).hex())
                 for r in c.reroute_log]
 
-    ctrl, cuda = _failure_leg("cuda")
+    shapes = {}
+    ctrl, cuda = _failure_leg("cuda", shapes=shapes)
     ref_ctrl, numpy_leg = _failure_leg("numpy")
     same = canon(ctrl.schedule().assignments) == canon(ref_ctrl.schedule().assignments)
     same_log = log_canon(ctrl) == log_canon(ref_ctrl)
-    log("failure", cuda=cuda, numpy=numpy_leg, identical=same, reroute_identical=same_log)
+    del ctrl, ref_ctrl
+    gc.collect()
+    timing = _k1_failure_timing(shapes, probes)
+    log("failure", cuda=cuda, numpy=numpy_leg, identical=same, reroute_identical=same_log,
+        k1=timing)
     if not (same and same_log and cuda["rerouted"] > 0):
         raise AssertionError("failure path differs from the numpy backend's")
-    if not cuda["stats"]["launches_columns"] > 0:
-        raise AssertionError("the reroute engine launched no column scan")
-    return cuda
+    if not (cuda["stats"]["launches_columns"] > 0
+            and sum(c for c, _ in shapes.values()) == cuda["stats"]["launches_columns"]):
+        raise AssertionError("the reroute engine launched no column scan, or "
+                             "launches went unrecorded")
+    return dict(cuda, k1=timing)
+
+
+def _histogram(shapes):
+    """``(n, L, W)`` → launches, the commonest first, and the launches by W."""
+    rows = sorted(shapes.items(), key=lambda kv: (-kv[1][0], kv[0]))
+    by_w = {}
+    for (n, L, W), (count, _) in shapes.items():
+        by_w[W] = by_w.get(W, 0) + count
+    return ([dict(n=n, L=L, W=W, launches=c) for (n, L, W), (c, _) in rows],
+            dict(sorted(by_w.items())))
+
+
+def _k1_failure_timing(shapes, probes):
+    """K1's column form at the failure leg's commonest launch shape and at
+    its widest W (the commonest shape there), on seeded inputs of that
+    shape gathered from a mirror of the leg's own size: columns increasing
+    along each row, as the reroute engine's compressed columns are."""
+    import torch
+
+    from repro_torch.kernels import ts_plan, ts_plan_device as dev
+
+    cuda = torch.device("cuda", 0)
+    hist, by_w = _histogram(shapes)
+    widest = max(by_w)
+    picks = {"commonest": hist[0],
+             "widest": next(h for h in hist if h["W"] == widest)}
+    rng = np.random.default_rng(SEED + 2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
+    up = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=cuda)  # noqa: E731
+    f64, i64 = torch.float64, torch.int64
+    out = dict(launches=sum(h["launches"] for h in hist), distinct_shapes=len(hist),
+               launches_by_W=by_w, histogram=hist[:12])
+    for key, h in picks.items():
+        n, L, W = h["n"], h["L"], h["W"]
+        R, Wm = max(shapes[(n, L, W)][1])
+        M = rng.random((R, Wm))
+        M[rng.random((R, Wm)) < 0.3] = 0.0
+        span = min(2 * W, Wm)
+        start = rng.integers(0, Wm - span + 1, size=n)
+        cols = start[:, None] + np.sort(
+            np.stack([rng.choice(span, W, replace=False) for _ in range(n)]), axis=1)
+        args = (up(M, f64), up(rng.integers(0, R, size=(n, L)), i64), up(cols, i64),
+                up(rng.uniform(1.0, 37.0, size=n), f64),
+                up(rng.uniform(0.0, 0.1, size=(n, W)), f64),
+                up(rng.uniform(0.0, 37.0 * 0.05 * W, size=n), f64))
+        got = dev.scan_columns(*args)
+        want = ts_plan.col_scan_torch(*(a.cpu() for a in args))
+        if not all(_bitwise(g, w)[0] for g, w in zip(got, want)):
+            raise AssertionError(f"K1's column form differs at {(n, L, W)}")
+        out[key] = dict(shape=[n, L, W], launches=h["launches"], mirror=[R, Wm],
+                        ms=_time_ms(lambda: dev.scan_columns(*args), flush=flush),
+                        ms_l2_warm=_time_ms(lambda: dev.scan_columns(*args)),
+                        plain_ms=_time_ms(lambda: ts_plan.col_scan_torch(*args), flush=flush),
+                        **_k1_bound(n, L, W, "columns", probes))
+    return out
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -857,8 +1028,19 @@ def _phase_scan(cuda):
     torch.cuda.synchronize()
     if fails:
         raise AssertionError(f"K4 differs from its plain version: {fails}")
+    return dict(checked=len(MAMBA_SHAPES), tolerance=SCAN_TOL, max_abs_err=err,
+                **_k4_timing(cuda, rng))
+
+
+def _k4_timing(cuda, rng):
+    """K4 at the model's shape beside its plain version and its bound."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
     b, s, d_in, n = MAMBA_SHAPES[-1]
     inputs = _scan_inputs(rng, b, s, d_in, n, cuda)
+    probe = _ex2_probe(cuda)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
     nbytes = 4 * (3 * b * s * d_in + d_in * n + 2 * b * s * n)
     n_exp = b * s * d_in * n
@@ -867,14 +1049,42 @@ def _phase_scan(cuda):
              "operations": max(flops / F32_FLOP_S, n_exp / SFU_EXP_S)}
     by = max(bound, key=bound.get)
     return dict(
-        checked=len(MAMBA_SHAPES), tolerance=SCAN_TOL, max_abs_err=err,
         shape=dict(B=b, S=s, d_in=d_in, N=n, dtype="float32"),
         ms=_time_ms(lambda: ops.mamba_scan(*inputs), flush=flush),
         ms_l2_warm=_time_ms(lambda: ops.mamba_scan(*inputs)),
         plain_ms=_time_ms(lambda: ref.mamba_scan_ref(*inputs), flush=flush),
         library_ms=None, bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes,
         flops=flops, exps=n_exp, flops_ms=flops / F32_FLOP_S * 1e3,
-        exps_ms=n_exp / SFU_EXP_S * 1e3)
+        exps_ms=n_exp / SFU_EXP_S * 1e3, **probe)
+
+
+def _ex2_probe(cuda):
+    """The special-function units' ex2 rate, by ``csrc/mamba_scan.cu``'s
+    probe (independent chains on every SM), beside the peak the bound
+    assumes.  Empty where the library has none."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("mamba_scan")
+    if not hasattr(lib, "mamba_scan_probe_ex2"):
+        return {}
+    fn = lib.mamba_scan_probe_ex2
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, device=cuda)
+    blocks, iters = 4 * torch.cuda.get_device_properties(cuda).multi_processor_count, 2000
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def run():
+        if fn(out.data_ptr(), blocks, iters, stream) != 0:
+            raise RuntimeError("ex2 probe launch failed")
+
+    ms = _time_ms(run, reps=10)
+    rate = blocks * 256 * iters * 16 / (ms * 1e-3)
+    return dict(ex2_per_s=rate, ex2_per_s_peak=SFU_EXP_S, ex2_probe_ms=ms)
 
 
 def phase_train():
@@ -1064,13 +1274,41 @@ def _attention_entry(name, t, launches):
     return entry
 
 
+def kernel_times() -> int:
+    """``--kernel-times``: build, then time K1 (the window form at the fleet
+    shape; the column form at the failure leg's commonest and widest launch
+    shapes, recorded on one ``cuda`` failure leg) and K4 at the model's
+    shape, and print them as one JSON line.  For comparing two trees'
+    kernels in one call: copy this script into each and run it there."""
+    import torch
+
+    _name, smi = phase_device()
+    cuda = torch.device("cuda", 0)
+    probes = _k1_probes(cuda)
+    shapes = {}
+    _failure_leg("cuda", shapes=shapes)
+    gc.collect()
+    out = dict(nvidia_smi=smi, probes=probes, k1_window=_k1_window_timing(cuda, probes),
+               k1_columns=_k1_failure_timing(shapes, probes),
+               k4=_k4_timing(cuda, np.random.default_rng(SEED)))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "kernel_times.json"), "w") as fh:
+        json.dump(dict(out, ptxas=REPORT["ptxas"]), fh, indent=1, default=float)
+    print(json.dumps(out, default=float))
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:] == ["--kernel-times"]:
+        return kernel_times()
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times]")
     name, smi = phase_device()
     timing = phase_kernels()
     main_cuda = phase_main_path()
-    fail_cuda = phase_failure()
+    fail_cuda = phase_failure(timing)
     attn = phase_attention()
     serve = phase_serve()
     train = phase_train()
@@ -1090,6 +1328,14 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "empty_launch_ms": timing["empty_launch_ms"],
+        "dadd_latency_ns": timing["dadd_latency_ns"],
+        "failure_shape": fail_cuda["k1"]["commonest"]["shape"],
+        "ms_failure_shape": fail_cuda["k1"]["commonest"]["ms"],
+        "bound_ms_failure_shape": fail_cuda["k1"]["commonest"]["bound_ms"],
+        "failure_shape_widest": fail_cuda["k1"]["widest"]["shape"],
+        "ms_failure_shape_widest": fail_cuda["k1"]["widest"]["ms"],
+        "bound_ms_failure_shape_widest": fail_cuda["k1"]["widest"]["bound_ms"],
     }] + [_attention_entry(name, attn[name], launches) for name, launches in (
         ("flash_attention", serve["k2_launches"]),
         ("flash_decode", serve["k3_launches"]),

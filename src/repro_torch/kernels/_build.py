@@ -31,12 +31,12 @@ from ..obs import default_registry
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # One flag set for every source.  ``--fmad=false``: K1 must not contract a
-# multiply and an add that numpy rounds separately (csrc/ts_plan.cu), and K4
-# rounds each product and sum as the reference does (csrc/mamba_scan.cu).
-# The attention kernels need no flag of their own: their CUDA-core multiply-adds
-# that must fuse are explicit ``fmaf``, which the flag leaves alone; K2's
-# tensor-core products are ``wgmma`` (hence ``sm_90a``), and it fetches the
-# driver's tensor-map encoder at run time instead of linking libcuda.
+# multiply and an add that numpy rounds separately (csrc/ts_plan.cu).  The
+# other kernels need no flag of their own: their multiply-adds that must
+# fuse are explicit ``fmaf`` / ``__fmaf_rn`` (K4's recurrence, the attention
+# kernels' CUDA-core sums), which the flag leaves alone; K2's tensor-core
+# products are ``wgmma`` (hence ``sm_90a``), and it fetches the driver's
+# tensor-map encoder at run time instead of linking libcuda.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

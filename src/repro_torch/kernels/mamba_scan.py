@@ -9,6 +9,11 @@ counts the launch in ``stats["launches"]``; given CPU tensors it runs the
 plain version, :func:`ref.mamba_scan_ref`.  Nothing else selects the
 plain version, and no failure on the card falls back to it.
 
+The kernel's arithmetic differs from the plain version's only in its
+rounding (exp as ``ex2.approx`` of Δ·(A·log₂e), fused multiply-adds for h
+and y, y summed per lane then pairwise across :func:`scan_lanes`' lanes);
+:func:`ref.mamba_scan_design_ref` computes that arithmetic on the CPU.
+
 The wrapper keeps the reference's shape contract — ``d_in % min(block_d,
 d_in) == 0`` and ``S % min(chunk, S) == 0`` — so the same calls succeed and
 fail on both packages; inside, the CUDA kernel stages its own chunks of
@@ -24,8 +29,19 @@ from ..obs import default_registry
 from . import _build, ref
 from .flash_attention import stream
 
-#: The kernel holds at most this many states per channel (4 per lane).
+#: The kernel holds at most this many states per channel (16 lanes of 8).
 MAX_STATE = 128
+
+
+def scan_lanes(n: int) -> tuple:
+    """The kernel's ``(G, K)`` for state dim ``n``: G lanes per channel,
+    each holding K consecutive states (``csrc/mamba_scan.cu``'s dispatch)."""
+    if not 0 < n <= MAX_STATE:
+        raise ValueError(f"mamba_scan: state dim N={n}; the kernel takes 1..{MAX_STATE}")
+    if n <= 8:
+        return 1, 1 << (n - 1).bit_length()
+    return 1 << (n - 1).bit_length() - 3, 8
+
 
 #: ``launches``: kernel launches (CUDA tensors only).
 stats = default_registry().group("mamba_scan", ("launches",))
@@ -52,8 +68,7 @@ def _check_cuda_inputs(x, dt, a, b_mat, c_mat) -> None:
         if tuple(named[key].shape) != shape:
             raise ValueError(f"mamba_scan: {key} has shape {tuple(named[key].shape)}, "
                              f"expected {shape} for x {tuple(x.shape)}, a [d_in, N]")
-    if not 0 < n <= MAX_STATE:
-        raise ValueError(f"mamba_scan: state dim N={n}; the kernel takes 1..{MAX_STATE}")
+    scan_lanes(n)  # raises for a state dim the kernel does not take
     if bsz > 65535:
         raise ValueError(f"mamba_scan: batch {bsz} exceeds the grid's 65 535 rows")
 

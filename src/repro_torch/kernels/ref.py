@@ -9,12 +9,13 @@ mamba oracle is a Python loop over time on a ``[B, d_in, N]`` float32
 state.  All run on any device.  The kernel wrappers use them for tensors
 on the CPU only; on the card's paths nothing calls them.
 
-Two more spell out the arithmetic of the kernels' designs, for the checks
-of the kernels and their tests only: ``attention_ref(...,
+Three more spell out the arithmetic of the kernels' designs, for the
+checks of the kernels and their tests only: ``attention_ref(...,
 p_dtype=torch.bfloat16, p_block=64)`` rounds the probabilities before P.V
 as K2's tensor-core path does, each key tile's against the running row
-max, and :func:`decode_split_ref` computes K3's per-chunk partials and
-their merge.
+max, :func:`decode_split_ref` computes K3's per-chunk partials and their
+merge, and :func:`mamba_scan_design_ref` rounds K4's recurrence as the
+kernel does.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Optional, Union
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def attention_ref(
@@ -121,4 +123,54 @@ def mamba_scan_ref(
         da = torch.exp(dt[:, t, :, None] * a)
         h = da * h + (dt[:, t] * x[:, t])[..., None] * b_mat[:, t, None, :]
         ys.append(torch.einsum("bin,bn->bi", h, c_mat[:, t]))
+    return torch.stack(ys, 1)
+
+
+def _fma32(a, b, c):
+    """float32 fused multiply-add: the product exact in float64, the sum
+    rounded once to float64 and then to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def mamba_scan_design_ref(
+    x: torch.Tensor,            # [B, S, d_in] f32
+    dt: torch.Tensor,           # [B, S, d_in] f32
+    a: torch.Tensor,            # [d_in, N] f32
+    b_mat: torch.Tensor,        # [B, S, N] f32
+    c_mat: torch.Tensor,        # [B, S, N] f32
+    lanes: int,
+    per_lane: int,
+) -> torch.Tensor:
+    """K4's arithmetic, for a channel's states held by ``lanes`` lanes of
+    ``per_lane`` consecutive states (``mamba_scan.scan_lanes``): exp(Δ·A)
+    as 2^(Δ·(A·log₂e)) with A·log₂e and Δ·(A·log₂e) rounded to float32 and
+    results below 2^-126 flushed to 0 (``ex2.approx.ftz``); h = fma(e, h,
+    B·(Δx)); y as each lane's fma sum over its states in order, then the
+    lanes' sums added pairwise by the kernel's shuffle butterfly."""
+    bsz, s, d_in = x.shape
+    n = a.shape[-1]
+    npad = lanes * per_lane
+    pad = lambda t: torch.nn.functional.pad(t, (0, npad - n))  # noqa: E731
+    a2 = pad(a * torch.tensor(LOG2E, dtype=torch.float32))
+    bp, cp = pad(b_mat), pad(c_mat)
+    h = torch.zeros((bsz, d_in, npad), dtype=torch.float32, device=x.device)
+    lane = torch.arange(lanes, device=x.device)
+    tiny = torch.tensor(2.0 ** -126, dtype=torch.float32)
+    ys = []
+    for t in range(s):
+        d = dt[:, t, :, None]
+        e = torch.exp2(d * a2)
+        e = torch.where(e < tiny, torch.zeros_like(e), e)
+        u = bp[:, t, None, :] * (dt[:, t] * x[:, t])[..., None]
+        h = _fma32(e, h, u)
+        hl = h.view(bsz, d_in, lanes, per_lane)
+        cl = cp[:, t].view(bsz, 1, lanes, per_lane).expand_as(hl)
+        acc = torch.zeros((bsz, d_in, lanes), dtype=torch.float32, device=x.device)
+        for k in range(per_lane):
+            acc = _fma32(cl[..., k], hl[..., k], acc)
+        w = lanes // 2
+        while w >= 1:
+            acc = acc + acc[..., lane ^ w]
+            w //= 2
+        ys.append(acc[..., 0])
     return torch.stack(ys, 1)

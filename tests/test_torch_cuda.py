@@ -84,6 +84,52 @@ def test_columns_form_matches_plain(card, n, L, W):
     _same(got, ts_plan.col_scan_torch(*host))
 
 
+# The failure path's column scans (core/reroute.py): a reroute round's live
+# candidates, up to a fat tree's path length, W = 64 escalating ×4.
+FAILURE_SHAPES = [(n, L, W) for n in (1, 3, 17, 48) for L in (1, 6)
+                  for W in (64, 256, 1024, 4096)]
+
+
+@pytest.mark.parametrize("n,L,W", FAILURE_SHAPES)
+def test_window_form_matches_plain_at_failure_shapes(card, n, L, W):
+    test_window_form_matches_plain(card, n, L, W)
+
+
+@pytest.mark.parametrize("n,L,W", FAILURE_SHAPES)
+def test_columns_form_matches_plain_at_failure_shapes(card, n, L, W):
+    test_columns_form_matches_plain(card, n, L, W)
+
+
+@pytest.mark.parametrize("W", [1025, 3 * 1024 + 17, 65536])
+def test_scan_carries_the_sum_across_tiles(card, W):
+    """Rows longer than one shared tile (1 024 slots): the in-order sum
+    carries from tile to tile, and the window form's plan end reads cum
+    and bw from an earlier tile where hit falls there."""
+    n, L = 5, 3
+    test_window_form_matches_plain(card, n, L, W)
+    test_columns_form_matches_plain(card, n, L, W)
+    rng = np.random.default_rng(W)
+    R, Wm, dur = 16, W + 8, 0.1
+    M = 0.9 * rng.random((R, Wm))  # every slot adds: hit is the index below
+    pad = rng.integers(0, R, size=(n, L))
+    off = np.zeros(n, dtype=np.int64)
+    sz = off + 500
+    caps = np.full(n, 2.0)
+    first = np.full(n, dur)
+    booked = M[pad[:, :, None], np.arange(W)]
+    cum = np.cumsum((1.0 - booked.max(axis=1)) * caps[:, None] * dur, axis=1)
+    # sizes whose hit falls in the first tile, the second, the middle, the
+    # last slot, and past the end
+    idx = [10, min(1100, W - 1), W // 2, W - 2]
+    sizes = np.append(cum[np.arange(4), idx], cum[4, -1] * 2)
+    host = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (M, pad, off, caps, first, sizes, sz, sz * dur)]
+    got = ts_plan_device.scan_window(*(h.to(card) for h in host), dur, W)
+    want = ts_plan.wave_scan_torch(*host, dur, W)
+    _same(got, want)
+    assert got[3].cpu().tolist() == idx + [W]
+
+
 @pytest.mark.parametrize("cap", [None, 3.7])
 @pytest.mark.parametrize("n,L,W", SHAPES)
 def test_dense_form_matches_numpy(card, n, L, W, cap):
@@ -407,8 +453,8 @@ def _scan_inputs(rng, b, s, d_in, n, dev):
 @pytest.mark.parametrize("case", MAMBA_CASES_CARD, ids=str)
 def test_mamba_scan_kernel_matches_plain(card, case):
     """K4 against its plain version on the card, at the reference's atol
-    2e-4 (float32; the kernel rounds each product and sum as the plain
-    version does, but sums y over the states in another order)."""
+    2e-4 (float32; the kernel's exp is ex2.approx and its products and sums
+    fused, which ``ref.mamba_scan_design_ref`` models on the CPU)."""
     from repro_torch.kernels import mamba_scan, ops, ref
 
     inputs = _scan_inputs(np.random.default_rng(sum(case)), *case, card)
@@ -417,6 +463,45 @@ def test_mamba_scan_kernel_matches_plain(card, case):
     torch.cuda.synchronize()
     assert mamba_scan.stats["launches"] == launches + 1
     assert got.dtype == torch.float32 and tuple(got.shape) == case[:3]
+    want = ref.mamba_scan_ref(*inputs)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+MAMBA_DESIGN_CASES_CARD = [
+    # (B, S, d_in, N): every lane plan of the design (mamba_scan.scan_lanes),
+    # d_in not a multiple of the block's channels (128 / G) nor of 4 (the
+    # 4-byte staging path), S not a multiple of the chunk (64 or 32 steps),
+    # and the model's N at a ragged d_in and S.
+    (2, 100, 200, 1),
+    (1, 77, 130, 3),
+    (2, 1000, 520, 16),
+    (1, 70, 36, 33),
+    (2, 65, 20, 64),
+    (1, 45, 12, 128),
+    (1, 33, 7, 16),
+    (3, 129, 66, 5),
+]
+
+
+@pytest.mark.parametrize("case", MAMBA_DESIGN_CASES_CARD, ids=str)
+def test_mamba_scan_kernel_matches_plain_at_every_lane_plan(card, case):
+    test_mamba_scan_kernel_matches_plain(card, case)
+
+
+def test_mamba_scan_kernel_takes_unaligned_views(card):
+    """x and dt as views 4 bytes past an aligned base, and B, C with N not
+    a multiple of 4: the kernel stages them 4 bytes at a time."""
+    from repro_torch.kernels import ops, ref
+
+    b, s, d_in, n = 2, 96, 64, 6
+    inputs = list(_scan_inputs(np.random.default_rng(9), b, s, d_in, n, card))
+    for i in (0, 1):
+        flat = torch.empty(1 + inputs[i].numel(), device=card)
+        view = flat[1:].view(b, s, d_in)
+        view.copy_(inputs[i])
+        inputs[i] = view
+    assert inputs[0].data_ptr() % 16 == 4 and inputs[0].is_contiguous()
+    got = ops.mamba_scan(*inputs)
     want = ref.mamba_scan_ref(*inputs)
     assert float((got - want).abs().max()) <= 2e-4
 
@@ -468,3 +553,25 @@ def test_two_layer_full_width_eval_through_k4(card):
     opt = AdamW()
     with pytest.raises(NotImplementedError, match="no backward"):
         make_train_step(model, opt)(params, opt.init(params), batch)
+
+
+def test_two_layer_full_width_eval_through_k4_at_the_models_length(card):
+    """The same at the model's 2 × 1 024 tokens, where K4 runs 16 chunks of
+    64 steps: the loss through K4 equals the plain scan's within the
+    float32 bound of the test above."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.launch.steps import make_eval_step
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("falcon-mamba-7b").with_(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=card).manual_seed(1), card)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 1024))
+    batch = {"tokens": torch.as_tensor(toks, device=card)}
+    launches = mamba_scan.stats["launches"]
+    loss_k = float(make_eval_step(Model(cfg.with_(ssm_impl="pallas")))(params, batch)["loss"])
+    assert mamba_scan.stats["launches"] - launches == 2
+    loss_x = float(make_eval_step(Model(cfg.with_(ssm_impl="xla")))(params, batch)["loss"])
+    assert np.isfinite(loss_k) and abs(loss_k - loss_x) <= 1e-4
