@@ -65,6 +65,21 @@ result lines are printed:
               step and a second eval under ``torch.profiler`` (device time
               and idle share); (d) at 2 layers,
               a train step through K4 raises, as in the reference.
+8. scheduler — the rest of the scheduler, each leg on ``cuda`` and then on
+              ``numpy`` in one process, schedules and ledgers
+              byte-identical: (a) ``bench_hierarchy.py``'s fleet leg (64
+              pods × 256 hosts, 128 jobs × 256 tasks every 0.05 s) through
+              the pod-affine ``HierarchicalController``, one ledger mirror
+              per pod, with the flat ``ClusterController`` on ``cuda`` over
+              the same arrivals beside it (a leg past 60 s cuts the job
+              count, printed); (b) ``bench_recovery.py``'s acceptance storm
+              (k 8, 128 tasks, a controller kill) journaled, and its twin
+              from snapshot bytes plus the journal replay; a state restore
+              across a retire with the mirror live; the affine hierarchy's
+              snapshot twin; (c) ``bench_faults.py``'s storm at k 8 with
+              3 000 tasks (host kills, stragglers, retries, LATE
+              speculation) on both reroute engines.  K1's launches on each
+              path go on the kernel line.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -417,26 +432,6 @@ def _k1_window_timing(cuda, probes):
 # -- phase 3 -------------------------------------------------------------------
 
 
-def fleet_instance(pods: int, hosts: int, n_tasks: int):
-    """The repository's fleet configuration: ``pods × hosts`` TPU-fleet DCN,
-    256–640 MB input shards with 3 seeded replicas, 0.1 s slots."""
-    from repro_torch.core import Instance, Task, tpu_dcn_fabric
-
-    n_hosts = pods * hosts
-    fab = tpu_dcn_fabric(n_pods=pods, hosts_per_pod=hosts)
-    workers = [f"pod{p}/host{h}" for p in range(pods) for h in range(hosts)]
-    rng = np.random.default_rng(SEED)
-    idx = rng.integers(0, n_hosts, size=(n_tasks, 3))
-    tasks = [
-        Task(tid=i, size=float(256e6 + (i % 7) * 64e6), compute=float(0.05),
-             replicas=tuple(workers[j] for j in idx[i]))
-        for i in range(n_tasks)
-    ]
-    idle = {w: float(rng.uniform(0, 2.0)) for w in workers}
-    return Instance(fabric=fab, workers=workers, idle=idle, tasks=tasks,
-                    slot_duration=0.1)
-
-
 def _reset_counts():
     """Every kernel's launch count (and the scan's call counts) to 0."""
     from repro_torch.kernels import (decode_attention, flash_attention, mamba_scan, ts_plan,
@@ -460,6 +455,7 @@ def _fleet_leg(backend: str, pods=16, hosts=256, n_tasks=40_000, batch=1024):
 
     from repro_torch.core import ClusterController
     from repro_torch.kernels import ts_plan
+    from repro_torch.tools.dump_schedules import fleet_instance
 
     inst = fleet_instance(pods, hosts, n_tasks)
     ts_plan.set_backend(backend)
@@ -1251,6 +1247,370 @@ def _layer0_scan(cfg, params, batch):
                 rms_skip=float(xc.float().square().mean().sqrt()))
 
 
+# -- phase 8 -------------------------------------------------------------------
+
+# bench_hierarchy.py's full-mode FLEET_LEG: 64 pods × 256 hosts, 128 jobs of
+# 256 tasks arriving every 0.05 s, 0.1 s slots, seed 0.
+HIER_FLEET = dict(n_pods=64, hosts_per_pod=256, jobs=128, tasks_per_job=256,
+                  dt=0.05, slot=0.1, seed=0)
+LEG_LIMIT_S = 60.0  # a longer hierarchy leg cuts its job count
+# bench_recovery.py's and bench_faults.py's acceptance configurations (k 8:
+# 128 hosts), on bench_faults.py's storm (``dump_schedules.fault_storm_setup``):
+# FaultPlan seed 7 over [0.5, 3.0), crashed hosts back after 2 s, stragglers
+# 4–8× slower, retries (4 attempts, 0.5 s backoff).
+RECOVERY = dict(k=8, tasks=128, crashes=6, stragglers=16, crash_at=1.2, outage=1.0,
+                batches=8, estimator="window")
+STORM = dict(k=8, tasks=3000, crashes=6, stragglers=16)
+BACKENDS = ("cuda", "numpy")  # each leg on the card, then the reference
+_CANON_EXCLUDE = ("wavefront.", "recovery.")
+
+
+def _hier_jobs(hosts, n_jobs, tasks_per_job, dt, seed=0):
+    """bench_hierarchy.py's open-loop arrival stream: job ``j`` arrives at
+    ``j*dt`` with its 3 replicas in one rotating pod, 64–256 MB shards."""
+    import random
+
+    from repro_torch.core import Task
+
+    rng = random.Random(seed)
+    by_pod = {}
+    for h in hosts:
+        by_pod.setdefault(h.split("/", 1)[0], []).append(h)
+    pods = sorted(by_pod)
+    jobs, tid = [], 0
+    for j in range(n_jobs):
+        pool = by_pod[pods[j % len(pods)]]
+        jobs.append(([Task(tid + i, size=float(rng.uniform(64e6, 256e6)), compute=0.05,
+                           replicas=tuple(rng.sample(pool, min(3, len(pool)))))
+                      for i in range(tasks_per_job)], j * dt))
+        tid += tasks_per_job
+    return jobs
+
+
+def _fault_plan(workers, n_crashes, n_stragglers):
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.tools import dump_schedules as d
+
+    return FaultPlan.generate(d.SEED, workers, d.T0, d.T1, n_crashes=n_crashes, mttr=d.MTTR,
+                              n_stragglers=n_stragglers, slow_factor=d.SLOW)
+
+
+def _fault_controller(fab, workers, speculation=False):
+    from repro_torch.core.controller import BassPolicy, ClusterController, RetryPolicy
+
+    return ClusterController(fab, workers, BassPolicy(multipath=True), slot_duration=0.1,
+                             retry=RetryPolicy(max_attempts=4, backoff_s=0.5),
+                             speculation=speculation)
+
+
+def _ctrl_canon(c):
+    """The recovery suite's equivalence image of a flat controller:
+    schedule (floats as hex), reroute log, behavioural counters, ledger
+    bytes, origin and retired columns."""
+    from repro_torch.convert import canon
+
+    counters = {k: v for k, v in sorted(c.obs.snapshot(trace_tail=0)["counters"].items())
+                if not k.startswith(_CANON_EXCLUDE)}
+    led = c.state.ledger
+    reroutes = [(r.flow, r.old_path, r.new_path, float(r.delivered).hex(),
+                 float(r.remaining).hex(), float(r.new_end).hex()) for r in c.reroute_log]
+    return (canon(c.schedule().assignments), reroutes, counters,
+            led.reserved.tobytes(), led.base_slot, led.retired_slots)
+
+
+def _hier_canon(h):
+    from repro_torch.convert import canon
+
+    return (canon(h.schedule().assignments),
+            tuple((n, sh.reserved.tobytes(), sh.base_slot, sh.retired_slots)
+                  for n, sh in sorted(h.ledger.shards.items())))
+
+
+def _hier_leg(backend, mode, n_jobs=None):
+    """One hierarchy-fleet leg: ``mode`` ``affine`` (the pod-affine
+    ``HierarchicalController``) or ``flat`` (``ClusterController``).  With
+    ``n_jobs`` None the leg stops submitting once it has run LEG_LIMIT_S
+    and reports the jobs it ran (the cut); otherwise it runs ``n_jobs``."""
+    import torch
+
+    from repro_torch.core import ClusterController, storage_hosts, tpu_dcn_fabric
+    from repro_torch.core.hierarchy import HierarchicalController
+    from repro_torch.kernels import ts_plan
+
+    cfg = HIER_FLEET
+    fab = tpu_dcn_fabric(n_pods=cfg["n_pods"], hosts_per_pod=cfg["hosts_per_pod"])
+    hosts = storage_hosts(fab)
+    jobs = _hier_jobs(hosts, cfg["jobs"], cfg["tasks_per_job"], cfg["dt"], cfg["seed"])
+    ts_plan.set_backend(backend)
+    torch.cuda.reset_peak_memory_stats()
+    # The path's run: counts to 0 just before it, read just after.
+    _reset_counts()
+    if mode == "affine":
+        ctl = HierarchicalController(fab, hosts, affinity=True, slot_duration=cfg["slot"])
+    else:
+        ctl = ClusterController(fab, hosts, "bass", slot_duration=cfg["slot"])
+    lat_ms, ran = [], 0
+    t0 = time.perf_counter()
+    for tasks, at in jobs[:n_jobs]:
+        c0 = time.perf_counter()
+        ctl.submit(tasks, at=at)
+        ctl.run_until(at)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - c0) * 1e3)
+        ran += 1
+        if n_jobs is None and time.perf_counter() - t0 > LEG_LIMIT_S:
+            break
+    dt = time.perf_counter() - t0
+    stats, calls = _counts()
+    n_tasks = ran * cfg["tasks_per_job"]
+    if sum(len(r.assignments) for r in ctl.jobs.values()) != n_tasks:
+        raise AssertionError(f"{mode} {backend}: not every task was placed")
+    leg = dict(backend=backend, mode=mode, hosts=len(hosts), jobs=ran, tasks=n_tasks,
+               seconds=dt, tasks_s=n_tasks / dt,
+               job_p50_ms=float(np.percentile(lat_ms, 50)),
+               job_p99_ms=float(np.percentile(lat_ms, 99)),
+               k1_launches=stats.get("launches", 0), mirror_syncs=stats.get("mirror_syncs", 0),
+               waves=calls["wave_scan"], calls=calls,
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if backend == "cuda" else None))
+    if mode == "affine":
+        leg["mirrors"] = sum(pc.shard._mirror is not None for pc in ctl.pods.values())
+        leg["pods"] = len(ctl.pods)
+        leg["hier"] = dict(ctl._stats)
+    return ctl, leg
+
+
+def _phase8_hierarchy():
+    """(a) The hierarchy fleet on each backend, then the flat controller on
+    the first over the same arrivals; the affine legs byte-identical."""
+    first, rest = BACKENDS[0], BACKENDS[1:]
+    ctl, lead = _hier_leg(first, "affine")
+    n_jobs = lead["jobs"]
+    want = _hier_canon(ctl)
+    del ctl
+    gc.collect()
+    legs, identical = [lead], True
+    for backend in rest:
+        ctl, leg = _hier_leg(backend, "affine", n_jobs)
+        identical = identical and _hier_canon(ctl) == want
+        legs.append(leg)
+        del ctl
+        gc.collect()
+    ctl, flat = _hier_leg(first, "flat", n_jobs)
+    del ctl
+    gc.collect()
+    cut = None if n_jobs == HIER_FLEET["jobs"] else dict(
+        jobs=n_jobs, of=HIER_FLEET["jobs"], reason=f"the {first} leg passed {LEG_LIMIT_S} s")
+    return dict(legs=legs, flat=flat, identical=identical, cut=cut)
+
+
+def _recovery_twin(backend):
+    """(b1) The journaled storm with a mid-storm controller kill: the
+    never-crashed controller and its twin rebuilt from snapshot bytes plus
+    the journal replay."""
+    from repro_torch.core.controller import ClusterController
+    from repro_torch.core.journal import ControllerSnapshot, Journal
+    from repro_torch.kernels import ts_plan
+    from repro_torch.tools.dump_schedules import T1, fault_storm_setup
+
+    cfg = RECOVERY
+    ts_plan.set_backend(backend)
+    fab, workers, tasks = fault_storm_setup(cfg["k"], cfg["tasks"])
+    base = _fault_controller(fab, workers)
+    base.attach_journal()
+    base.attach_telemetry(estimator=cfg["estimator"])
+    _fault_plan(workers, cfg["crashes"], cfg["stragglers"]).apply(base)
+    base.fail_controller(at=cfg["crash_at"])
+    base.recover_controller(at=cfg["crash_at"] + cfg["outage"])
+    per = max(1, len(tasks) // cfg["batches"])
+    batches = [tasks[i:i + per] for i in range(0, len(tasks), per)]
+    snap = None
+    for i, batch in enumerate(batches):
+        at = i * (T1 / len(batches))
+        base.submit(batch, at=at)
+        base.run_until(at)
+        if i == len(batches) // 2:
+            snap = base.snapshot().to_bytes()  # mid-storm checkpoint
+    base.run()
+    twin = ClusterController.recover_from(fab, ControllerSnapshot.from_bytes(snap),
+                                          Journal.from_bytes(base.journal.to_bytes()))
+    out = dict(base=_ctrl_canon(base), twin=_ctrl_canon(twin))
+    out["stats"] = dict(faults=dict(base.fault_stats), ha=dict(base.ha_stats),
+                        makespan=max(r.makespan for r in base.jobs.values() if r.placed))
+    return out
+
+
+def _restore_across_retire(backend):
+    """(b2) A wave, a snapshot, a retire past the wave's transfers with the
+    mirror live, a wave, the restore, and the next wave."""
+    from repro_torch.convert import canon
+    from repro_torch.core.controller import BassPolicy, ClusterState
+    from repro_torch.kernels import ts_plan
+    from repro_torch.tools.dump_schedules import fault_storm_setup
+
+    ts_plan.set_backend(backend)
+    fab, workers, tasks = fault_storm_setup(RECOVERY["k"], RECOVERY["tasks"])
+    state = ClusterState(fab, workers, slot_duration=0.1, horizon_slots=64)
+    pol = BassPolicy(multipath=True)
+    third = len(tasks) // 3
+    first = pol.place_batch(tasks[:third], state)
+    snap = state.snapshot()
+    led = state.ledger
+    cut = led.slot_of(max(a.transfer.end for a in first if a.transfer is not None)) + 8
+    state.advance(cut * led.slot_duration)
+    led.retire_to(cut)
+    retired = led.retired_slots
+    second = pol.place_batch(tasks[third:2 * third], state)
+    state.restore(snap)
+    last = pol.place_batch(tasks[2 * third:], state)
+    if retired <= 0 or (led.base_slot, led.retired_slots) != (0, 0):
+        raise AssertionError("the restore did not cross a retire")
+    return (canon(first), canon(second), canon(last), led.reserved.tobytes())
+
+
+def _hier_recovery_twin(backend):
+    """(b3) The pod-affine hierarchical controller's sharded journal,
+    snapshot and ``recover_from`` twin on the k 8 fat-tree."""
+    import random
+
+    from repro_torch.core import Task, storage_hosts
+    from repro_torch.core.hierarchy import HierarchicalController
+    from repro_torch.core.journal import ControllerSnapshot, ShardedJournal
+    from repro_torch.kernels import ts_plan
+    from repro_torch.net import fat_tree_fabric
+
+    ts_plan.set_backend(backend)
+    fab = fat_tree_fabric(RECOVERY["k"])
+    hosts = storage_hosts(fab)
+    rng = random.Random(61)
+    jobs = [([Task(j * 100 + i, size=rng.uniform(40, 400), compute=rng.uniform(1, 20),
+                   replicas=tuple(rng.sample(hosts, 3))) for i in range(rng.randint(4, 40))],
+             j * 2.0) for j in range(16)]
+    h1 = HierarchicalController(fab, hosts, affinity=True, rebalance_interval=3.0)
+    jrn = h1.attach_journal()
+    for tasks, at in jobs[:8]:
+        h1.submit(tasks, at=at)
+    h1.run_until(9.0)
+    snap = h1.snapshot().to_bytes()
+    for tasks, at in jobs[8:]:
+        h1.submit(tasks, at=at)
+    h1.run()
+    h2 = HierarchicalController.recover_from(fab, ControllerSnapshot.from_bytes(snap),
+                                             ShardedJournal.from_bytes(jrn.to_bytes()))
+    return dict(base=_hier_canon(h1), twin=_hier_canon(h2), stats=dict(h1._stats))
+
+
+def _phase8_recovery():
+    """(b) Each check on every backend; the counts of each backend's run of
+    all three."""
+    runs = {}
+    for backend in BACKENDS:
+        _reset_counts()
+        t0 = time.perf_counter()
+        runs[backend] = dict(twin=_recovery_twin(backend),
+                             restore=_restore_across_retire(backend),
+                             hier=_hier_recovery_twin(backend))
+        stats, calls = _counts()
+        runs[backend]["seconds"] = time.perf_counter() - t0
+        runs[backend]["k1_launches"] = stats.get("launches", 0)
+        runs[backend]["mirror_syncs"] = stats.get("mirror_syncs", 0)
+        runs[backend]["calls"] = calls
+    ref = runs[BACKENDS[-1]]
+    checks = dict(
+        twin_equals_uncrashed=all(r["twin"]["base"] == r["twin"]["twin"]
+                                  for r in runs.values()),
+        twin_across_backends=all(r["twin"]["base"] == ref["twin"]["base"]
+                                 for r in runs.values()),
+        restore_across_backends=all(r["restore"] == ref["restore"] for r in runs.values()),
+        hier_twin_equals=all(r["hier"]["base"] == r["hier"]["twin"] for r in runs.values()),
+        hier_across_backends=all(r["hier"]["base"] == ref["hier"]["base"]
+                                 for r in runs.values()),
+    )
+    out = {b: dict(seconds=r["seconds"], k1_launches=r["k1_launches"],
+                   mirror_syncs=r["mirror_syncs"], calls=r["calls"],
+                   storm=r["twin"]["stats"], hier=r["hier"]["stats"])
+           for b, r in runs.items()}
+    return dict(runs=out, checks=checks)
+
+
+def _storm_leg(backend, engine):
+    """(c) bench_faults.py's storm: host kills, stragglers, retries and
+    LATE speculation, under one reroute engine."""
+    import torch
+
+    from repro_torch.kernels import ts_plan
+    from repro_torch.tools.dump_schedules import fault_storm_setup
+
+    cfg = STORM
+    ts_plan.set_backend(backend)
+    fab, workers, tasks = fault_storm_setup(cfg["k"], cfg["tasks"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    ctrl = _fault_controller(fab, workers, speculation=True)
+    ctrl.reroute_engine = engine
+    ctrl.submit(tasks, at=0.0)
+    ctrl.run_until(0.0)
+    _fault_plan(workers, cfg["crashes"], cfg["stragglers"]).apply(ctrl)
+    ctrl.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stats, calls = _counts()
+    placed = sorted(a.tid for a in ctrl.jobs[0].assignments)
+    if placed != list(range(cfg["tasks"])):
+        raise AssertionError(f"the storm lost {cfg['tasks'] - len(placed)} tasks")
+    return ctrl, dict(backend=backend, engine=engine, seconds=dt,
+                      k1_launches=stats.get("launches", 0),
+                      mirror_syncs=stats.get("mirror_syncs", 0), calls=calls,
+                      faults=dict(ctrl.fault_stats), rerouted=len(ctrl.reroute_log),
+                      makespan=ctrl.jobs[0].makespan)
+
+
+def _phase8_storm():
+    """Both engines on the first backend, the batched one on the others:
+    every leg's schedule, reroute log, fault counters and ledger equal the
+    last leg's, and legs of one engine equal in every counter too (the
+    engines count their own work differently)."""
+    legs, canons = [], []
+    for backend in BACKENDS:
+        for engine in (("batched", "sequential") if backend == BACKENDS[0] else ("batched",)):
+            ctrl, leg = _storm_leg(backend, engine)
+            canons.append((engine, _ctrl_canon(ctrl),
+                           sorted((k, float(v).hex()) for k, v in ctrl.fault_stats.items())))
+            legs.append(leg)
+            del ctrl
+            gc.collect()
+    last_engine, last, last_faults = canons[-1]
+    invariant = lambda c: c[:2] + c[3:]  # noqa: E731  (all but the counters)
+    identical = all(invariant(c) == invariant(last) and f == last_faults
+                    and (e != last_engine or c == last) for e, c, f in canons)
+    return dict(legs=legs, identical=identical)
+
+
+def phase_scheduler():
+    """Phase 8: the rest of the scheduler, each leg on ``cuda`` and then on
+    ``numpy`` in one process, byte-identical."""
+    t0 = time.perf_counter()
+    hier = _phase8_hierarchy()
+    rec = _phase8_recovery()
+    storm = _phase8_storm()
+    first = BACKENDS[0]
+    launches = dict(
+        hierarchy=hier["legs"][0]["k1_launches"],
+        recovery=rec["runs"][first]["k1_launches"],
+        fault_storm=sum(leg["k1_launches"] for leg in storm["legs"]
+                        if leg["backend"] == first),
+    )
+    log("scheduler", hierarchy=hier, recovery=rec, storm=storm, k1_launches=launches,
+        seconds=time.perf_counter() - t0)
+    bad = [k for k, ok in [("hierarchy", hier["identical"]), ("storm", storm["identical"])]
+           + list(rec["checks"].items()) if not ok]
+    if bad:
+        raise AssertionError(f"phase 8: not byte-identical across backends: {bad}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"phase 8: K1 was not launched on every path: {launches}")
+    return dict(launches=launches, hierarchy=hier, storm=storm)
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -1312,6 +1672,7 @@ def main() -> int:
     attn = phase_attention()
     serve = phase_serve()
     train = phase_train()
+    sched = phase_scheduler()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -1320,6 +1681,9 @@ def main() -> int:
         "launches": main_cuda["stats"]["launches"],
         "launches_failure_path": fail_cuda["stats"]["launches"],
         "launches_serve_path": serve["k1_launches"],
+        "launches_hierarchy_path": sched["launches"]["hierarchy"],
+        "launches_recovery_path": sched["launches"]["recovery"],
+        "launches_fault_storm_path": sched["launches"]["fault_storm"],
         "max_abs_err": timing["max_abs_err"],
         "checked": timing["checked"],
         "bitwise": True,

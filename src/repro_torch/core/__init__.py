@@ -1,6 +1,7 @@
 """The paper's contribution: BASS bandwidth-aware scheduling with an SDN-style
-global fabric view and Time-Slot bandwidth allocation, with the planning
-scan bound to ``repro_torch.kernels.ts_plan``.
+global fabric view, Time-Slot bandwidth allocation, the HDS/BAR baselines,
+Pre-BASS prefetching, QoS queueing, and the evaluation simulator, with the
+planning scan bound to ``repro_torch.kernels.ts_plan``.
 
 This package carries the scheduling core's numpy modules unchanged; only
 the kernel seam (``kernels/``) is PyTorch and CUDA, and importing this
@@ -12,6 +13,8 @@ Public API:
 ``ClusterController``           — the online event loop (multi-job streams)
 ``ClusterState``/``POLICIES``   — shared world + pluggable per-event policies
 ``schedule_bass``               — Algorithm 1 (offline wrapper)
+``schedule_hds``/``schedule_bar`` — paper baselines (offline wrappers)
+``schedule_prebass``            — Discussion-2 prefetching variant
 ``QosPort``                     — Discussion-3 OpenFlow queue model
 ``replay``/``replay_online``/``evaluate_mapreduce`` — verification + metrics
 """
@@ -46,9 +49,19 @@ from .controller import (
     SchedulingPolicy,
     run_policy,
 )
+from .faults import FaultPlan, HostCrash, LinkFlap, StragglerOnset
 from .bass import schedule_bass
+from .baselines import schedule_bar, schedule_hds
+from .prebass import schedule_prebass
 from .qos import Flow, QosPort, QueueSpec, example3_port, shuffle_vs_default, single_queue_port
 from .simulator import JobMetrics, ReplayReport, evaluate_mapreduce, replay, replay_online
+
+SCHEDULERS = {
+    "bass": schedule_bass,
+    "hds": schedule_hds,
+    "bar": schedule_bar,
+    "prebass": schedule_prebass,
+}
 
 __all__ = [
     "Assignment",
@@ -58,7 +71,11 @@ __all__ = [
     "ClusterController",
     "ClusterState",
     "Fabric",
+    "FaultPlan",
     "Flow",
+    "HostCrash",
+    "LinkFlap",
+    "StragglerOnset",
     "HdsPolicy",
     "Instance",
     "JobMetrics",
@@ -68,6 +85,7 @@ __all__ = [
     "QueueSpec",
     "ReplayReport",
     "RetryPolicy",
+    "SCHEDULERS",
     "Schedule",
     "SchedulingPolicy",
     "Task",
@@ -75,15 +93,18 @@ __all__ = [
     "TransferPlan",
     "UnroutableError",
     "completion_time",
-    "example3_port",
     "evaluate_mapreduce",
+    "example3_port",
     "execution_time",
     "movement_time",
     "paper_fig2_fabric",
     "replay",
     "replay_online",
     "run_policy",
+    "schedule_bar",
     "schedule_bass",
+    "schedule_hds",
+    "schedule_prebass",
     "shuffle_vs_default",
     "single_queue_port",
     "storage_hosts",

@@ -4,8 +4,11 @@ The control plane (``repro_torch.core``) decides *who* computes and *when*
 bytes move; this package models *how they get there*: k-shortest-path
 multipath routing (``paths``), per-switch flow tables (``flowtable``),
 link/switch/host failure events with failure-aware rerouting (``events``),
-topology builders with real path diversity (``fattree``), and the
-:class:`DataPlane` that ``ClusterController`` drives (``dataplane``).
+topology builders with real path diversity (``fattree``), the
+:class:`DataPlane` that ``ClusterController`` drives (``dataplane``), and
+the telemetry plane (``telemetry``): per-link counter polling, EWMA/windowed
+bandwidth estimators, and the measured-bandwidth :class:`BeliefState` that
+``telemetry=True`` policies schedule against (DESIGN.md §9).
 """
 from .dataplane import DataPlane
 from .events import (
@@ -21,9 +24,19 @@ from .events import (
 from .fattree import fat_tree_fabric, oversubscribed_leaf_spine
 from .flowtable import FlowRule, FlowTable, FlowTables
 from .paths import PathEngine, UnroutableError, k_shortest_paths
+from .telemetry import (
+    BeliefState,
+    EwmaEstimator,
+    LinkStatsMonitor,
+    WindowRateEstimator,
+)
 
 __all__ = [
+    "BeliefState",
     "DataPlane",
+    "EwmaEstimator",
+    "LinkStatsMonitor",
+    "WindowRateEstimator",
     "FlowRule",
     "HostDown",
     "HostUp",

@@ -183,6 +183,92 @@ def test_fleet_slice_on_the_card_matches_numpy(card):
     assert np.array_equal(mirror.host_view(), on_card.state.ledger.reserved)
 
 
+
+def test_affine_hierarchy_on_the_card_matches_numpy(card):
+    """The pod-affine hierarchical controller on the reference benchmark's
+    smoke leg (k 4, 64 jobs × 32 tasks), with the rebalancer on and a short
+    retire stride: every pod's wavefront scans its own shard's mirror on
+    the card."""
+    import random
+
+    from repro_torch.convert import canon
+    from repro_torch.core import Task, storage_hosts
+    from repro_torch.core.hierarchy import HierarchicalController
+    from repro_torch.net import fat_tree_fabric
+
+    def run(backend):
+        ts_plan.set_backend(backend)
+        fab = fat_tree_fabric(4, link_mbps=25e9)
+        hosts = storage_hosts(fab)
+        h = HierarchicalController(fab, hosts, affinity=True, slot_duration=0.1,
+                                   rebalance_interval=0.5)
+        h.ledger.retire_stride = 4
+        rng = random.Random(0)
+        by_pod = {}
+        for host in hosts:
+            by_pod.setdefault(host.split("/", 1)[0], []).append(host)
+        pods = sorted(by_pod)
+        for j in range(64):
+            pool = by_pod[pods[j % len(pods)]]
+            tasks = [Task(j * 32 + i, float(rng.uniform(64e6, 256e6)), 0.05,
+                          tuple(rng.sample(pool, 3))) for i in range(32)]
+            h.submit(tasks, at=j * 0.1)
+            h.run_until(j * 0.1)
+        h.run()
+        shards = tuple((n, sh.reserved.tobytes(), sh.base_slot)
+                       for n, sh in sorted(h.ledger.shards.items()))
+        return h, canon(h.schedule().assignments), shards
+
+    ts_plan_device.stats.reset()
+    on_card, got, shards = run("cuda")
+    assert ts_plan_device.stats["launches_window"] > 0
+    assert on_card._stats["rehomed"] > 0
+    _, want, want_shards = run("numpy")
+    assert got == want and shards == want_shards
+    for pc in on_card.pods.values():
+        mir = pc.shard._mirror
+        assert mir.device.type == "cuda"
+        mir.sync()
+        assert np.array_equal(mir.host_view(), pc.shard.reserved)
+
+
+@pytest.mark.parametrize("cross", [True, False], ids=["across_retire", "same_origin"])
+def test_state_restore_with_the_mirror_on_the_card_matches_numpy(card, cross):
+    """Wave, snapshot, (retire,) wave, restore, wave: the restore
+    invalidates the card's mirror, so the last wave equals numpy's."""
+    from repro_torch.convert import canon
+    from repro_torch.core import BassPolicy, ClusterState, Task, storage_hosts
+    from repro_torch.net import fat_tree_fabric
+
+    def run(backend):
+        ts_plan.set_backend(backend)
+        fab = fat_tree_fabric(4, link_mbps=100.0)
+        hosts = storage_hosts(fab)
+        sources, workers = hosts[:8], hosts[8:]
+        rng = np.random.default_rng(0)
+        idx = rng.integers(0, 8, size=(24, 3))
+        tasks = [Task(i, float(32 + (i % 5) * 16), 2.0,
+                      tuple(sources[j] for j in idx[i])) for i in range(24)]
+        state = ClusterState(fab, workers, slot_duration=0.1, horizon_slots=64)
+        pol = BassPolicy(multipath=True)
+        out = [canon(pol.place_batch(tasks[:8], state))]
+        snap = state.snapshot()
+        led = state.ledger
+        if cross:
+            end = max(float.fromhex(a[6][2]) for a in out[0] if a[6] is not None)
+            cut = led.slot_of(end) + 8
+            state.advance(cut * led.slot_duration)
+            led.retire_to(cut)
+        out.append(canon(pol.place_batch(tasks[8:16], state)))
+        state.restore(snap)
+        out.append(canon(pol.place_batch(tasks[16:], state)))
+        return out, led.reserved.tobytes()
+
+    ts_plan_device.stats.reset()
+    got = run("cuda")
+    assert ts_plan_device.stats["launches_window"] >= 3
+    assert got == run("numpy")
+
 def test_multipath_and_switch_kill_on_the_card_match_numpy(card):
     """Pairs-mode waves (``wave_select`` on the card) and a core switch
     killed under in-flight transfers (column scans on the card)."""

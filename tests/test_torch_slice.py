@@ -249,7 +249,7 @@ def test_serving_path_imports_neither_jax_nor_reference(modules):
 
 
 def test_port_sources_import_nothing_of_jax_or_the_reference():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
@@ -261,3 +261,68 @@ def test_port_sources_import_nothing_of_jax_or_the_reference():
                 f"{path}:{i}" for i, line in enumerate(fh, 1) if pat.match(line)
             ]
     assert offenders == []
+
+
+def _port_imports():
+    """Every import in ``src/repro_torch/**.py``, lazy ones inside
+    functions included, as ``(file:line, absolute module, names)``, with
+    relative imports resolved against the file's package."""
+    import ast
+
+    root = os.path.join(SRC, "repro_torch")
+    for dirpath, _dirs, names in os.walk(root):
+        for name in sorted(n for n in names if n.endswith(".py")):
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, SRC)[:-3].split(os.sep)
+            package = rel[:-1] if rel[-1] != "__init__" else rel[:-1]
+            with open(path, encoding="utf-8") as fh:
+                tree = ast.parse(fh.read(), path)
+            where = os.path.relpath(path, ROOT)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.ImportFrom):
+                    if node.level:
+                        base = package[: len(package) - (node.level - 1)]
+                        mod = ".".join(base + ([node.module] if node.module else []))
+                    else:
+                        mod = node.module
+                    yield f"{where}:{node.lineno}", mod, [a.name for a in node.names]
+                elif isinstance(node, ast.Import):
+                    for a in node.names:
+                        yield f"{where}:{node.lineno}", a.name, []
+
+
+def test_port_imports_resolve_to_port_modules():
+    """Every relative import of the port (and every absolute import of
+    ``repro_torch``) names a module the port carries, or a name that its
+    package defines: a port module can never name a module only the
+    reference has, even in a lazy import that no test reaches."""
+    import importlib
+    import importlib.util
+
+    seen, missing = 0, []
+    for where, mod, names in _port_imports():
+        if not mod.startswith("repro_torch"):
+            continue
+        seen += 1
+        spec = importlib.util.find_spec(mod)
+        if spec is None:
+            missing.append(f"{where}: {mod}")
+            continue
+        is_package = spec.submodule_search_locations is not None
+        for name in names:
+            if name == "*" or (is_package and importlib.util.find_spec(f"{mod}.{name}")):
+                continue
+            if not hasattr(importlib.import_module(mod), name):
+                missing.append(f"{where}: {mod}.{name}")
+    assert seen > 100
+    assert missing == []
+
+
+def test_import_guard_sees_lazy_imports():
+    """The controller's lazy imports of the journal, the telemetry plane
+    and the runtime are among the resolved imports the guard checks."""
+    mods = {(w.split(":")[0], m) for w, m, _n in _port_imports()}
+    ctl = os.path.join("src", "repro_torch", "core", "controller.py")
+    for mod in ("repro_torch.core.journal", "repro_torch.net.telemetry",
+                "repro_torch.runtime.ft"):
+        assert (ctl, mod) in mods
