@@ -80,6 +80,25 @@ result lines are printed:
               3 000 tasks (host kills, stragglers, retries, LATE
               speculation) on both reroute engines.  K1's launches on each
               path go on the kernel line.
+9. models   — the MoE, hybrid and encoder-decoder families on the serving
+              path, each served like phase 6 (2 replicas × 4 slots behind
+              ``BassRouter``, 8 requests, 16 new tokens), K2 launched once
+              per attention layer and prefill, then freed: (a)
+              moonshot-v1-16b-a3b at full width and depth (bf16, 512-token
+              prompts), served twice with identical tokens, the prefill's
+              drop rate; its bf16 full-depth logits on the kernel and
+              plain paths against float32 and the share of expert choices
+              they differ in; at 4 layers in float32 the two paths' greedy
+              tokens, every expert choice, and logits within 1e-4; one MoE
+              layer in float32 on the card against its CPU copy (routing
+              identical, 1e-4); (b) jamba-v0.1-52b at full width, 16 of 32
+              layers: the serve, a slot write into a fresh engine (only
+              that slot of every cache leaf changes), an eval step through
+              K4 (one launch per mamba layer) against the time loop
+              (phase 7's bounds, float32 on one period of 8 layers), and
+              float32 greedy tokens on one period, kernel = plain; (c)
+              whisper-base with zero frames and 128-token prompts (K2 at
+              head dim 64), float32 greedy tokens kernel = plain.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -846,7 +865,7 @@ def _prefill_logits_f32(cfg, params, prompt, dev):
     """The prefill's last-position logits in float32 throughout, on the
     plain attention path, with each layer's bf16 weights upcast as the
     layer runs (a float32 copy of all the weights would not fit beside
-    the bf16 ones)."""
+    the bf16 ones).  A uniform stack: dense or MoE."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -861,17 +880,18 @@ def _prefill_logits_f32(cfg, params, prompt, dev):
     with torch.no_grad():
         x = params["embed"][torch.as_tensor(prompt[None, :], device=dev).long()].float()
         rope = model._rope(torch.arange(x.shape[1], device=dev))
+        mixer, ffn = tf._slot_kind(cfg, 0)
         for li in range(cfg.n_layers):
             lp = up(tf._index_tree(params["stack"], li))
-            x, _ = tf._apply_layer_full(lp, x, cfg32, rope, "attn", "mlp", False)
+            x, _, _ = tf._apply_layer_full(lp, x, cfg32, rope, mixer, ffn, False)
         head = up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]})
         return model._head(head, x[:, -1:])[0, 0]
 
 
-def _greedy(model, params, prompt, n, dev):
+def _greedy(model, params, prompt, n, dev, s_max=1024):
     from repro_torch.serving import Request, ServeEngine
 
-    eng = ServeEngine(model, params, 1, 1024, device=dev)
+    eng = ServeEngine(model, params, 1, s_max, device=dev)
     req = Request(rid=0, prompt=prompt, max_new=n)
     assert eng.admit(req)
     while eng.active:
@@ -1611,6 +1631,409 @@ def phase_scheduler():
     return dict(launches=launches, hierarchy=hier, storm=storm)
 
 
+# -- phase 9 -------------------------------------------------------------------
+
+# The MoE, hybrid and encoder-decoder families, each served the way phase 6
+# serves mistral-nemo-12b (2 replicas × 4 slots behind ``BassRouter``, 8
+# requests, 16 new tokens each).  moonshot-v1-16b-a3b at full width and
+# depth (56.1 GB of bf16 parameters); jamba-v0.1-52b at full width, cut to
+# 16 of its 32 layers (two periods: 52.1 GB; all 32 take 103.1 GB), its
+# float32 checks on one period (8 layers, 50 GB); whisper-base whole, with
+# zero audio frames (the engine's stub) and prompts of 128 tokens (K2 takes
+# S a multiple of its 128-row block; whisper's decoder holds 448).
+MODELS = {
+    "moe": dict(arch="moonshot-v1-16b-a3b", n_layers=48, f32_layers=4, replicas=2, slots=4,
+                s_max=1024, requests=8, prompt_len=512, max_new=16),
+    "hybrid": dict(arch="jamba-v0.1-52b", n_layers=16, f32_layers=8, replicas=2, slots=4,
+                   s_max=1024, requests=8, prompt_len=512, max_new=16, eval_batch=2,
+                   eval_seq=1024),
+    "encdec": dict(arch="whisper-base", replicas=2, slots=4, s_max=448,
+                   requests=8, prompt_len=128, max_new=16),
+}
+# One MoE layer in float32 on the card against its CPU copy, and the
+# kernel path's float32 logits against the plain path's (4 layers): sums
+# of 2 048 and 1 408 float32 terms in another order, so a few float32
+# ulps of values under 1 in size.  The bf16 full-depth logits are reported
+# against float32, not gated: routing is discontinuous, and a bf16
+# difference between K2 and the plain path's rounding can flip an expert
+# choice and move a logit by its own size.
+MOE_TOL = 1e-4
+
+
+class _Routing:
+    """While active, records every MoE call's expert ids [T, k] and kept
+    entries [T·k] (wrapping ``moe.route`` and ``moe.dispatch``, which the
+    layer calls by name); restores both on exit."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls = []
+        self._saved = moe.route, moe.dispatch
+        route, dispatch = self._saved
+
+        def recording_route(p, xt, cfg):
+            out = route(p, xt, cfg)
+            self.calls.append({"gate_idx": out[2]})
+            return out
+
+        def recording_dispatch(gate_idx, n_experts, cap):
+            out = dispatch(gate_idx, n_experts, cap)
+            self.calls[-1]["keep"] = out[1]
+            return out
+
+        moe.route, moe.dispatch = recording_route, recording_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route, moe.dispatch = self._saved
+
+    def drop_rate(self, n_tokens, n_layers):
+        """Dropped share of the (token, choice) entries of the calls over
+        ``n_tokens`` tokens (the prefills): over all of them, and by layer
+        (the calls come ``n_layers`` to a prefill, in layer order)."""
+        keeps = [c["keep"] for c in self.calls if c["gate_idx"].shape[0] == n_tokens]
+        drops = [float((~k).sum()) / k.numel() for k in keeps]
+        by_layer = [float(np.mean(drops[li::n_layers])) for li in range(n_layers)]
+        return float(np.mean(drops)), by_layer
+
+
+def _routing_diff(a, b):
+    """(share of expert ids that differ, share of (token, layer) pairs whose
+    chosen set differs) between two recordings of the same calls."""
+    if len(a.calls) != len(b.calls):
+        raise AssertionError(f"{len(a.calls)} MoE calls against {len(b.calls)}")
+    ids = pairs = ids_n = pairs_n = 0
+    for x, y in zip(a.calls, b.calls):
+        gx, gy = x["gate_idx"].cpu(), y["gate_idx"].cpu()
+        ids += int((gx != gy).sum())
+        pairs += int((gx.sort(-1)[0] != gy.sort(-1)[0]).any(-1).sum())
+        ids_n, pairs_n = ids_n + gx.numel(), pairs_n + gx.shape[0]
+    return ids / ids_n, pairs / pairs_n
+
+
+def _n_attn(cfg):
+    return sum(cfg.is_attn_layer(layer) for layer in range(cfg.n_layers))
+
+
+def _model_serve(model, params, spec, dev):
+    """One serve run of ``spec``: engines behind a ``BassRouter`` driven by
+    ``launch/serve.py``'s ``drive``, every kernel's count set to 0 just
+    before and read just after → (run, {rid: tokens}, requests).  Raises
+    unless every request completed and K2 launched once per attention
+    layer and prefill."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention, mamba_scan
+    from repro_torch.launch.serve import drive, make_requests
+    from repro_torch.serving import BassRouter, ServeEngine
+
+    cfg = model.cfg
+    names = [f"pod0/host{i}" for i in range(spec["replicas"])]
+    engines = {n: ServeEngine(model, params, spec["slots"], spec["s_max"], name=n, device=dev)
+               for n in names}
+    router = BassRouter(names)
+    reqs = make_requests(cfg, spec["requests"], spec["prompt_len"], spec["max_new"], SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = drive(engines, router, reqs, log=None)
+    torch.cuda.synchronize()
+    k1, calls = _counts()
+    k2, k3 = flash_attention.stats["launches"], decode_attention.stats["launches"]
+    k4 = mamba_scan.stats["launches"]
+    prefills = len(out["prefill_s"])
+    tokens = sum(len(r.tokens_out) for r in reqs)
+    run = dict(
+        seconds=out["seconds"], tokens=tokens, tokens_s=tokens / out["seconds"],
+        prefills=prefills, prefill_p50_ms=float(np.percentile(out["prefill_s"], 50)) * 1e3,
+        decode_ticks=len(out["tick_s"]),
+        decode_tick_p50_ms=float(np.percentile(out["tick_s"], 50)) * 1e3,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        k2_launches=k2, k3_launches=k3, k4_launches=k4, k1_launches=k1["launches"],
+        planner_calls=calls, attn_layers=_n_attn(cfg), head_dim=cfg.resolved_head_dim)
+    if not (all(r.done and len(r.tokens_out) == spec["max_new"] for r in reqs)
+            and prefills == spec["requests"]):
+        raise AssertionError(f"{cfg.name}: serve run incomplete: {run}")
+    if k2 != _n_attn(cfg) * prefills or k4 != 0:
+        raise AssertionError(f"{cfg.name}: K2 launched {k2} times (K4 {k4}) for {prefills} "
+                             f"prefills of {_n_attn(cfg)} attention layers")
+    return run, {r.rid: list(r.tokens_out) for r in reqs}, reqs
+
+
+def _profile_paths(model, params, spec, dev):
+    """One prefill of a ``prompt_len`` prompt and one decode step over
+    ``slots`` slots at position ``prompt_len``, the serve run's shapes,
+    each warm under ``torch.profiler`` (``_profiled``): wall and device
+    time, idle share, the largest device kernels."""
+    import torch
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    prompt = make_requests(cfg, 1, spec["prompt_len"], 1, SEED + 3)[0].prompt
+    batch = {"tokens": torch.as_tensor(prompt[None, :], device=dev).long()}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16,
+                                      device=dev)
+    caches = model.init_caches(spec["slots"], spec["s_max"], dev)
+    token = torch.ones((spec["slots"], 1), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        prefill = lambda: model.prefill(params, batch, spec["s_max"])  # noqa: E731
+        decode = lambda: model.decode(params, token, spec["prompt_len"], caches)  # noqa: E731
+        prefill(), decode()
+        out = dict(prefill=_profiled(prefill)[1], decode=_profiled(decode)[1])
+        if cfg.family == "encdec":
+            out["encode"] = _profiled(lambda: encdec.encode(params, batch["frames"], cfg))[1]
+    del caches
+    return out
+
+
+def _free():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phase9_moe(dev, spec):
+    """(a) moonshot-v1-16b-a3b at full width and depth, bf16."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, moe
+    from repro_torch.models.model import Model
+
+    cfg = get_config(spec["arch"]).with_(
+        n_layers=spec["n_layers"], attn_impl="pallas", remat=False)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    run, tokens, reqs = _model_serve(model, params, spec, dev)
+    with _Routing() as rec:
+        _, tokens_again, _ = _model_serve(model, params, spec, dev)
+    run["drop_rate_prefill"], run["drop_rate_prefill_by_layer"] = rec.drop_rate(
+        spec["prompt_len"], cfg.n_layers)
+    run["profile"] = _profile_paths(model, params, spec, dev)
+    run["capacity_prefill"] = moe.capacity(cfg, spec["prompt_len"])
+    run["capacity_decode"] = moe.capacity(cfg, spec["slots"])
+    twice = dict(identical=tokens == tokens_again)
+
+    # bf16 at full depth: the kernel path and the plain path against float32.
+    prompt = reqs[0].prompt
+    with _Routing() as rk:
+        lk = _prefill_logits(model, params, prompt, spec["s_max"], dev)
+    with _Routing() as rx:
+        lx = _prefill_logits(Model(cfg.with_(attn_impl="xla")), params, prompt,
+                             spec["s_max"], dev)
+    l32 = _prefill_logits_f32(cfg, params, prompt, dev)
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    ids, pairs = _routing_diff(rk, rx)
+    bf16 = dict(kernel_vs_f32=err(lk, l32), plain_vs_f32=err(lx, l32),
+                kernel_vs_plain=err(lk, lx), max_abs_logit=float(l32.abs().max()),
+                expert_ids_differing=ids, token_layers_differing=pairs,
+                finite=bool(torch.isfinite(lk).all()))
+    del params
+    _free()
+
+    # float32, full width, spec["f32_layers"] layers: kernel path = plain path.
+    cfg32 = cfg.with_(n_layers=spec["f32_layers"], param_dtype="float32",
+                      compute_dtype="float32")
+    params32 = Model(cfg32).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    with _Routing() as rk:
+        tok_k = _greedy(Model(cfg32), params32, prompt, spec["max_new"], dev, spec["s_max"])
+    with _Routing() as rx:
+        tok_x = _greedy(Model(cfg32.with_(attn_impl="xla")), params32, prompt,
+                        spec["max_new"], dev, spec["s_max"])
+    ids32, _ = _routing_diff(rk, rx)
+    lk32 = _prefill_logits(Model(cfg32), params32, prompt, spec["s_max"], dev)
+    lx32 = _prefill_logits(Model(cfg32.with_(attn_impl="xla")), params32, prompt,
+                           spec["s_max"], dev)
+    f32 = dict(layers=cfg32.n_layers, tokens_kernel=tok_k, tokens_plain=tok_x,
+               identical=tok_k == tok_x, routing_calls=len(rk.calls),
+               expert_ids_differing=ids32, logits_kernel_vs_plain=err(lk32, lx32),
+               tolerance=MOE_TOL)
+
+    # One MoE layer in float32 on the card against its CPU copies.
+    lp = {k: v[0] for k, v in params32["stack"]["moe"].items()}
+    x = torch.randn((1, spec["prompt_len"], cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    with torch.no_grad(), _Routing() as rd:
+        y, aux = moe.moe_block(lp, x, cfg32)
+    with torch.no_grad(), _Routing() as rc:
+        yc, auxc = moe.moe_block({k: v.cpu() for k, v in lp.items()}, x.cpu(), cfg32)
+    same = all(torch.equal(a[k].cpu(), b[k]) for a, b in zip(rd.calls, rc.calls)
+               for k in ("gate_idx", "keep"))
+    layer = dict(routing_identical=same, max_abs_err=err(y.cpu(), yc),
+                 aux_err=abs(float(aux) - float(auxc)), max_abs_y=float(yc.abs().max()),
+                 tolerance=MOE_TOL)
+    del params32, lp
+    _free()
+    out = dict(config=spec, params=count_params(model.defs()), run=run, twice=twice,
+               bf16_full_depth=bf16, f32=f32, layer=layer)
+    if not (twice["identical"] and bf16["finite"]):
+        raise AssertionError(f"(a) the serve's tokens differ between two runs: {out}")
+    if not (f32["identical"] and ids32 == 0 and f32["logits_kernel_vs_plain"] <= MOE_TOL):
+        raise AssertionError(f"(a) float32 kernel and plain paths differ: {f32}")
+    if not (same and layer["max_abs_err"] <= MOE_TOL and layer["aux_err"] <= MOE_TOL):
+        raise AssertionError(f"(a) the MoE layer on the card differs from its CPU copy: {layer}")
+    return out
+
+
+def _slot_write(model, params, spec, dev):
+    """Three requests into a fresh one-replica engine, the third into slot
+    2: that slot of every cache leaf must change, and no other slot."""
+    import torch
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.params import flatten
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(model, params, spec["slots"], spec["s_max"], device=dev)
+    reqs = make_requests(model.cfg, 3, spec["prompt_len"], spec["max_new"], SEED + 2)
+    admitted = [eng.admit(r) for r in reqs[:2]]
+    before = {path: t.clone() for path, t in flatten(eng._caches)}
+    admitted.append(eng.admit(reqs[2]))
+    others = [i for i in range(spec["slots"]) if i != 2]
+    leaves = list(flatten(eng._caches))
+    out = dict(admitted=all(admitted) and eng.active.get(2) is reqs[2],
+               others_untouched=all(torch.equal(t[:, others], before[p][:, others])
+                                    for p, t in leaves),
+               slot_written=all(not torch.equal(t[:, 2], before[p][:, 2]) for p, t in leaves),
+               leaves=len(leaves), kinds=sorted({p[-1] for p, _ in leaves}))
+    del eng, before
+    return out
+
+
+def _phase9_hybrid(dev, spec):
+    """(b) jamba-v0.1-52b at full width, 16 of 32 layers, bf16."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, mamba_scan
+    from repro_torch.launch.steps import make_eval_step
+    from repro_torch.models import count_params
+    from repro_torch.models.model import Model
+
+    cfg = get_config(spec["arch"]).with_(
+        n_layers=spec["n_layers"], attn_impl="pallas", ssm_impl="pallas", remat=False)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    run, _, reqs = _model_serve(model, params, spec, dev)
+    run["profile"] = _profile_paths(model, params, spec, dev)
+    slots = _slot_write(model, params, spec, dev)
+
+    # The eval path's run through K4: counts to 0 just before, read just after.
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                size=(spec["eval_batch"], spec["eval_seq"]))
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss_k = float(make_eval_step(model)(params, batch)["loss"])
+    eval_k_s = time.perf_counter() - t0
+    launches = dict(mamba_scan=mamba_scan.stats["launches"],
+                    flash_attention=flash_attention.stats["launches"])
+    t0 = time.perf_counter()
+    loss_x = float(make_eval_step(Model(cfg.with_(ssm_impl="xla")))(params, batch)["loss"])
+    eval_x_s = time.perf_counter() - t0
+    n_mamba = cfg.n_layers - _n_attn(cfg)
+    ev = dict(bfloat16=dict(loss_kernel=loss_k, loss_plain=loss_x,
+                            abs_diff=abs(loss_k - loss_x)),
+              seconds_kernel=eval_k_s, seconds_plain=eval_x_s, launches=launches,
+              mamba_layers=n_mamba, tolerance=EVAL_TOL)
+    del params
+    _free()
+
+    # float32 on one period: eval through K4 against the time loop, and the
+    # greedy tokens of the kernel and plain attention paths.
+    cfg32 = cfg.with_(n_layers=spec["f32_layers"], param_dtype="float32",
+                      compute_dtype="float32")
+    params32 = Model(cfg32).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    before = mamba_scan.stats["launches"]
+    l32 = {impl: float(make_eval_step(Model(cfg32.with_(ssm_impl=impl)))(params32, batch)["loss"])
+           for impl in ("pallas", "xla")}
+    ev["float32"] = dict(layers=cfg32.n_layers, loss_kernel=l32["pallas"], loss_plain=l32["xla"],
+                         abs_diff=abs(l32["pallas"] - l32["xla"]),
+                         k4_launches=mamba_scan.stats["launches"] - before)
+    prompt = reqs[0].prompt
+    tok_k = _greedy(Model(cfg32), params32, prompt, spec["max_new"], dev, spec["s_max"])
+    tok_x = _greedy(Model(cfg32.with_(attn_impl="xla")), params32, prompt, spec["max_new"],
+                    dev, spec["s_max"])
+    f32 = dict(layers=cfg32.n_layers, tokens_kernel=tok_k, tokens_plain=tok_x,
+               identical=tok_k == tok_x)
+    del params32
+    _free()
+    out = dict(config=spec, params=count_params(model.defs()),
+               cut="n_layers 32 -> 16 (two periods: one H100 holds 52.1 GB of their bf16 "
+                   "parameters, not the 103.1 GB of 32); float32 checks on one period",
+               run=run, slot_write=slots, eval=ev, f32=f32)
+    if not (slots["admitted"] and slots["others_untouched"] and slots["slot_written"]):
+        raise AssertionError(f"(b) the hybrid caches were not written into their slot: {slots}")
+    if not (launches["mamba_scan"] == n_mamba and ev["float32"]["k4_launches"]
+            == cfg32.n_layers - _n_attn(cfg32)):
+        raise AssertionError(f"(b) K4 launched {launches} times for {n_mamba} mamba layers")
+    if not all(np.isfinite(ev[dt]["loss_kernel"]) and ev[dt]["abs_diff"] <= EVAL_TOL[dt]
+               for dt in EVAL_TOL):
+        raise AssertionError(f"(b) the eval losses differ: {ev}")
+    if not f32["identical"]:
+        raise AssertionError(f"(b) float32 greedy tokens differ: {f32}")
+    return out
+
+
+def _phase9_encdec(dev, spec):
+    """(c) whisper-base whole, bf16, zero audio frames."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+    from repro_torch.models.model import Model
+
+    cfg = get_config(spec["arch"]).with_(attn_impl="pallas", remat=False)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    run, _, reqs = _model_serve(model, params, spec, dev)
+    run["profile"] = _profile_paths(model, params, spec, dev)
+    del params
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    params32 = Model(cfg32).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompt = reqs[0].prompt
+    tok_k = _greedy(Model(cfg32), params32, prompt, spec["max_new"], dev, spec["s_max"])
+    tok_x = _greedy(Model(cfg32.with_(attn_impl="xla")), params32, prompt, spec["max_new"],
+                    dev, spec["s_max"])
+    f32 = dict(tokens_kernel=tok_k, tokens_plain=tok_x, identical=tok_k == tok_x)
+    del params32
+    _free()
+    if not f32["identical"]:
+        raise AssertionError(f"(c) float32 greedy tokens differ: {f32}")
+    return dict(config=spec, params=count_params(model.defs()), run=run, f32=f32)
+
+
+def phase_models():
+    """Phase 9: the MoE, hybrid and encoder-decoder families on the serving
+    path, one after another, each freed before the next starts."""
+    import torch
+
+    from repro_torch.kernels import ts_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ts_plan.set_backend("cuda")
+    cuda = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = {}
+    for fam, fn in (("moe", _phase9_moe), ("hybrid", _phase9_hybrid),
+                    ("encdec", _phase9_encdec)):
+        t = time.perf_counter()
+        out[fam] = fn(cuda, MODELS[fam])
+        out[fam]["seconds"] = time.perf_counter() - t
+    log("models", seconds=time.perf_counter() - t0, **out)
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -1619,7 +2042,7 @@ _ATTENTION_KERNELS = {
 }
 
 
-def _attention_entry(name, t, launches):
+def _attention_entry(name, t, launches, **extra):
     source, replaces = _ATTENTION_KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -1627,11 +2050,17 @@ def _attention_entry(name, t, launches):
              "bound_by": t["bound_by"], "library_ms": t["library_ms"],
              "design": ATTN_DESIGNS[name],
              "profiled_ms": t["profiled"]["ms_per_call"],
-             "library_profiled_ms": t["library_profiled"]["ms_per_call"]}
+             "library_profiled_ms": t["library_profiled"]["ms_per_call"], **extra}
     if name == "flash_decode":
         entry["launches_note"] = ("not on the serve path: the model's decode takes "
                                   "the plain path, as the reference's does")
     return entry
+
+
+def _k2_family_launches(models):
+    """K2's launches on phase 9's serve paths, for the kernel line."""
+    return {f"launches_{fam}_serve_path": models[fam]["run"]["k2_launches"]
+            for fam in ("moe", "hybrid", "encdec")}
 
 
 def kernel_times() -> int:
@@ -1673,6 +2102,7 @@ def main() -> int:
     serve = phase_serve()
     train = phase_train()
     sched = phase_scheduler()
+    models = phase_models()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -1700,10 +2130,9 @@ def main() -> int:
         "failure_shape_widest": fail_cuda["k1"]["widest"]["shape"],
         "ms_failure_shape_widest": fail_cuda["k1"]["widest"]["ms"],
         "bound_ms_failure_shape_widest": fail_cuda["k1"]["widest"]["bound_ms"],
-    }] + [_attention_entry(name, attn[name], launches) for name, launches in (
-        ("flash_attention", serve["k2_launches"]),
-        ("flash_decode", serve["k3_launches"]),
-    )] + [{
+    }, _attention_entry("flash_attention", attn["flash_attention"], serve["k2_launches"],
+                        **_k2_family_launches(models)),
+        _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"]), {
         "name": "mamba_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -1711,6 +2140,7 @@ def main() -> int:
         "launches": train["launches"],
         "launches_note": "on the eval path (16 layers); the train step takes the "
                          "plain scan, as the reference's must (K4 has no backward)",
+        "launches_hybrid_eval_path": models["hybrid"]["eval"]["launches"]["mamba_scan"],
         "max_abs_err": train["scan"]["max_abs_err"],
         "ms": train["scan"]["ms"],
         "plain_ms": train["scan"]["plain_ms"],

@@ -8,7 +8,10 @@ least-loaded replica with TS-reserved context transfer (Case 2).
 
 The model runs on ``--device`` (default ``cuda``); on a machine without a
 card pass ``--device cpu``, and the router's planning scans then run on
-the ``numpy`` backend.  Example::
+the ``numpy`` backend.  ``--arch`` takes any architecture of the
+registry, at its smoke size: dense, MoE, SSM, hybrid, encoder-decoder
+(served with zero audio frames, as the reference's engine does) and VLM.
+Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --smoke \\
         --replicas 2 --requests 12 --device cpu
@@ -101,7 +104,10 @@ def drive(engines: Dict[str, ServeEngine], router: BassRouter,
             "tick_s": tick_s}
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Parse ``argv``, serve, print one line per routing decision and
+    finished request and a summary → ``drive``'s times with the
+    ``requests`` served, the ``params`` and the ``cfg``."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="", choices=[""] + ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true", default=True)
@@ -137,6 +143,7 @@ def main(argv=None) -> None:
     dt = out["seconds"]
     print(f"served {args.requests} requests / {total_tokens} tokens "
           f"in {dt:.1f}s ({total_tokens/dt:.1f} tok/s)", flush=True)
+    return dict(out, requests=reqs, params=params, cfg=cfg)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""PyTorch model zoo: the dense, VLM and SSM stacks of the assigned
-architectures (the rest arrive with later slices)."""
+"""PyTorch model zoo: every family of the assigned architectures (dense,
+MoE, SSM, hybrid, encoder-decoder, VLM)."""
 from .model import Model, build_model
 from .params import P, abstract_params, count_params, init_params, param_axes
 

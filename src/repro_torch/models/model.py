@@ -1,4 +1,5 @@
-"""Unified model API (the dense, VLM and SSM families so far).
+"""Unified model API over every family: dense, MoE, SSM, hybrid,
+encoder-decoder and VLM.
 
 ``Model(cfg)`` exposes:
 
@@ -9,8 +10,9 @@
 * ``cache_defs(batch, s_max)`` / ``init_caches(batch, s_max, device)``
 
 Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub),
-optional ``loss_mask``.  The encoder-decoder family is a later slice
-(ROADMAP.md queue 1); ``encdec`` raises here.
+``frames`` (audio stub), optional ``loss_mask``.  ``decode`` returns
+``[B, V]`` logits for every family (the reference's encoder-decoder step
+keeps a length-1 sequence axis, ``[B, 1, V]``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from . import encdec as ed
 from .layers import rms_norm, rope_tables
 from .params import P, Tree, abstract_params, dtype_of, init_params, param_axes, tree_map_defs
 from .transformer import (
@@ -30,21 +33,14 @@ from .transformer import (
 )
 
 
-def _no_encdec(cfg: ModelConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "not ported yet: the encoder-decoder family (models/encdec.py) "
-            "is ROADMAP.md queue 1, item 3"
-        )
-
-
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     # -- parameters -----------------------------------------------------------
     def defs(self) -> Tree:
-        _no_encdec(self.cfg)
+        if self.cfg.family == "encdec":
+            return ed.encdec_defs(self.cfg)
         return model_defs(self.cfg)
 
     def init(self, generator: torch.Generator, device="cuda") -> Tree:
@@ -89,12 +85,17 @@ class Model:
         positions where given) plus the auxiliary loss → (total, {"ce",
         "aux"})."""
         cfg = self.cfg
-        _no_encdec(cfg)
-        x = self._assemble_input(params, batch)
-        rope = self._rope(torch.arange(x.shape[1], device=x.device))
-        x, aux, _ = apply_stack_full(cfg, params["stack"], x, rope)
-        logits = self._head(params, x)
-        n_prefix = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+        if cfg.family == "encdec":
+            enc = ed.encode(params, batch["frames"], cfg)
+            logits, _ = ed.decode_full(params, batch["tokens"], enc, cfg)
+            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+            n_prefix = 0
+        else:
+            x = self._assemble_input(params, batch)
+            rope = self._rope(torch.arange(x.shape[1], device=x.device))
+            x, aux, _ = apply_stack_full(cfg, params["stack"], x, rope)
+            logits = self._head(params, x)
+            n_prefix = cfg.n_vision_tokens if cfg.family == "vlm" else 0
 
         tokens = batch["tokens"]
         # predict token t+1 from position (n_prefix + t)
@@ -114,7 +115,8 @@ class Model:
 
     # -- serving ---------------------------------------------------------------
     def cache_defs(self, batch: int, s_max: int) -> Tree:
-        _no_encdec(self.cfg)
+        if self.cfg.family == "encdec":
+            return ed.encdec_cache_defs(self.cfg, batch, s_max)
         return tf_cache_defs(self.cfg, batch, s_max)
 
     def init_caches(self, batch: int, s_max: int, device="cuda") -> Tree:
@@ -130,7 +132,11 @@ class Model:
         self, params: Tree, batch: Dict[str, torch.Tensor], s_max: int
     ) -> Tuple[torch.Tensor, Tree]:
         """Full pass over the prompt → (logits at last position, caches)."""
-        _no_encdec(self.cfg)
+        if self.cfg.family == "encdec":
+            enc = ed.encode(params, batch["frames"], self.cfg)
+            logits, states = ed.decode_full(params, batch["tokens"], enc, self.cfg,
+                                            collect_state=True)
+            return logits[:, -1], self._pad_states(states, s_max)
         x = self._assemble_input(params, batch)
         rope = self._rope(torch.arange(x.shape[1], device=x.device))
         x, _, states = apply_stack_full(
@@ -140,7 +146,9 @@ class Model:
         return logits, self._pad_states(states, s_max)
 
     def _pad_states(self, states: Tree, s_max: int) -> Tree:
-        """Place prefill k/v (length S) into zero caches of length s_max."""
+        """Place prefill k/v (length S) into zero caches of length s_max,
+        at any depth of the tree; the other leaves (mamba states, the
+        encoder's ek/ev) stay as they are."""
 
         def pad(name: str, arr: torch.Tensor) -> torch.Tensor:
             if name not in ("k", "v"):
@@ -163,7 +171,9 @@ class Model:
     ) -> Tuple[torch.Tensor, Tree]:
         """One-token step → (logits [B, V], caches).  The caches are
         updated in place and returned."""
-        _no_encdec(self.cfg)
+        if self.cfg.family == "encdec":
+            logits, caches = ed.decode_step(params, token, int(pos), caches, self.cfg)
+            return logits[:, 0], caches
         x = self._embed(params, token)
         rope = self._rope(torch.tensor([int(pos)], device=x.device))
         x, caches = apply_stack_decode(self.cfg, params["stack"], x, rope, caches, int(pos))

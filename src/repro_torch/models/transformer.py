@@ -1,18 +1,21 @@
-"""Decoder-only stacks: dense, VLM (the VLM prepends patch embeddings in
-``model``; its stack is dense) and SSM (mamba).
+"""Decoder-only stacks: dense, MoE, SSM (mamba) and hybrid (jamba), and
+VLM (the VLM prepends patch embeddings in ``model``; its stack is dense).
 
-Parameters keep the reference's stacked layout — every leaf of
-``stack`` is ``[L, ...]`` — so converting the reference's parameters is a
-copy.  Where the reference scans over the stack (``lax.scan``), the port
-runs a Python loop over layers, indexing layer ``l`` of every leaf (a
-view, no copy); with ``cfg.remat`` a training pass checkpoints each layer
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  Decode
-caches are stacked ``[L, ...]`` — attention ``{"k", "v"}`` of ``[L, B,
-S_max, nkv, hd]``, mamba ``{"conv", "h"}`` of ``[L, B, k-1, d_in]`` and
-``[L, B, d_in, N]`` — and each layer writes its slice in place.
-
-The MoE and hybrid stacks are later slices of the port; their branches
-raise ``NotImplementedError`` naming the ROADMAP item.
+Parameters keep the reference's stacked layout, so converting the
+reference's parameters is a copy: every leaf of ``stack`` is ``[L, ...]``;
+the hybrid stack declares one repeating period of ``cfg.attn_period``
+slots, ``stack["slot{s}"]``, each leaf ``[n_periods, ...]`` (attention at
+slot ``attn_offset``, mamba elsewhere, MoE on the slots ``is_moe_layer``
+picks).  Where the reference scans over the stack (``lax.scan``), the port
+runs a Python loop over layers (over periods, then the slots of each),
+indexing one layer or period of every leaf (a view, no copy); with
+``cfg.remat`` a training pass checkpoints each layer, or each period of
+the hybrid stack (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``).  Decode caches keep the same stacking — attention
+``{"k", "v"}`` of ``[L, B, S_max, nkv, hd]``, mamba ``{"conv", "h"}`` of
+``[L, B, k-1, d_in]`` and ``[L, B, d_in, N]``, the hybrid's nested under
+``"slot{s}"`` with ``L`` its periods — and each layer writes its slice in
+place.
 """
 from __future__ import annotations
 
@@ -24,19 +27,11 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from .attention import attn_defs, decode_attention, full_attention
 from .layers import mlp_block, mlp_defs, rms_norm
+from .moe import moe_block, moe_defs
 from .params import P, Tree, tree_map_defs
 from .ssm import mamba_block, mamba_decode, mamba_defs
 
 Cache = Any
-
-_LATER = {
-    "moe": "the MoE layer (models/moe.py) is ROADMAP.md queue 1, item 2",
-    "hybrid": "the hybrid stack needs models/moe.py: ROADMAP.md queue 1, item 2",
-}
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(f"not ported yet: {_LATER[kind]}")
 
 
 # ---------------------------------------------------------------------------
@@ -55,22 +50,13 @@ def _slot_kind(cfg: ModelConfig, layer: int) -> Tuple[str, str]:
     return mixer, ffn
 
 
-def _check_ported(cfg: ModelConfig) -> Tuple[str, str]:
-    if cfg.family == "hybrid":
-        raise _not_ported("hybrid")
-    mixer, ffn = _slot_kind(cfg, 0)
-    if ffn == "moe":
-        raise _not_ported("moe")
-    return mixer, ffn
-
-
 def _one_layer_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     d = cfg.d_model
     defs: dict = {"ln1": P((d,), ("d_model",), "ones")}
     defs[mixer] = attn_defs(cfg) if mixer == "attn" else mamba_defs(cfg)
     if ffn != "none":
         defs["ln2"] = P((d,), ("d_model",), "ones")
-        defs[ffn] = mlp_defs(cfg)
+        defs[ffn] = mlp_defs(cfg) if ffn == "mlp" else moe_defs(cfg)
     return defs
 
 
@@ -80,9 +66,19 @@ def _stack(defs: Tree, n: int, axis: str = "layers") -> Tree:
     )
 
 
+def _n_periods(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.attn_period
+
+
 def stack_defs(cfg: ModelConfig) -> Tree:
     """Layer-stack parameter declaration (see module docstring)."""
-    mixer, ffn = _check_ported(cfg)
+    if cfg.family == "hybrid":
+        period = {}
+        for s in range(cfg.attn_period):
+            mixer, ffn = _slot_kind(cfg, s)
+            period[f"slot{s}"] = _one_layer_defs(cfg, mixer, ffn)
+        return _stack(period, _n_periods(cfg), "period")
+    mixer, ffn = _slot_kind(cfg, 0)
     return _stack(_one_layer_defs(cfg, mixer, ffn), cfg.n_layers)
 
 
@@ -99,10 +95,17 @@ def model_defs(cfg: ModelConfig) -> Tree:
 
 
 def _index_tree(tree: Tree, i: int) -> Tree:
-    """Layer ``i`` of every stacked leaf (views)."""
+    """Layer (or period) ``i`` of every stacked leaf (views)."""
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _stack_trees(trees) -> Tree:
+    """Stack same-structured trees leaf by leaf on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 # ---------------------------------------------------------------------------
@@ -111,8 +114,9 @@ def _index_tree(tree: Tree, i: int) -> Tree:
 
 def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
                       ffn: str, collect_state: bool):
-    """→ (x, state): the layer's cache contribution — attn: {"k","v"} over
-    the S positions seen; mamba: {"conv","h"} final — or None."""
+    """→ (x, aux, state): the MoE balance term (float32, zero without an
+    MoE), and the layer's cache contribution — attn: {"k","v"} over the S
+    positions seen; mamba: {"conv","h"} final — or None."""
     state = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
@@ -124,9 +128,15 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
     else:
         y = mamba_block(lp["mamba"], h, cfg)
     x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
-        x = x + mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-    return x, state
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if ffn == "moe":
+            y, aux = moe_block(lp["moe"], h, cfg)
+        else:
+            y = mlp_block(lp["mlp"], h, cfg)
+        x = x + y
+    return x, aux, state
 
 
 def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
@@ -140,13 +150,27 @@ def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer
         cache["h"].copy_(h_c)
     x = x + y
     if ffn != "none":
-        x = x + mlp_block(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if ffn == "moe":
+            y, _ = moe_block(lp["moe"], h, cfg)
+        else:
+            y = mlp_block(lp["mlp"], h, cfg)
+        x = x + y
     return x
 
 
 # ---------------------------------------------------------------------------
 # Stack application
 # ---------------------------------------------------------------------------
+
+def _units(cfg: ModelConfig):
+    """The stack's repeating units → (count, [(slot key or None, mixer,
+    ffn)]): the layers of a uniform stack, or the periods of the hybrid."""
+    if cfg.family == "hybrid":
+        return _n_periods(cfg), [(f"slot{s}",) + _slot_kind(cfg, s)
+                                 for s in range(cfg.attn_period)]
+    return cfg.n_layers, [(None,) + _slot_kind(cfg, 0)]
+
 
 def apply_stack_full(
     cfg: ModelConfig,
@@ -156,29 +180,36 @@ def apply_stack_full(
     collect_state: bool = False,
 ):
     """Full-sequence pass → (x, aux_loss, states_stacked | None).  The
-    auxiliary loss is the MoE balance term, zero for the dense and SSM
-    stacks.  With ``cfg.remat``, no state to collect and grad enabled,
-    each layer is checkpointed: its activations are recomputed in the
-    backward pass instead of kept."""
-    mixer, ffn = _check_ported(cfg)
+    auxiliary loss is the MoE balance term summed over the layers, zero
+    for the stacks without MoE.  With ``cfg.remat``, no state to collect
+    and grad enabled, each layer (each period of the hybrid stack) is
+    checkpointed: its activations are recomputed in the backward pass
+    instead of kept."""
+    n_units, slots = _units(cfg)
 
-    def layer(lp, x):
-        return _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state)
+    def unit(up, x, aux):
+        states = {}
+        for key, mixer, ffn in slots:
+            lp = up if key is None else up[key]
+            x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state)
+            aux = aux + a
+            states[key] = st
+        # A uniform stack's unit is one layer, whose state is the unit's.
+        return x, aux, states.get(None, states)
 
     remat = cfg.remat and not collect_state and torch.is_grad_enabled()
-    states = []
-    for li in range(cfg.n_layers):
-        lp = _index_tree(stack, li)
-        if remat:
-            x, st = checkpoint(layer, lp, x, use_reentrant=False)
-        else:
-            x, st = layer(lp, x)
-        states.append(st)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    states = []
+    for ui in range(n_units):
+        up = _index_tree(stack, ui)
+        if remat:
+            x, aux, st = checkpoint(unit, up, x, aux, use_reentrant=False)
+        else:
+            x, aux, st = unit(up, x, aux)
+        states.append(st)
     if not collect_state:
         return x, aux, None
-    stacked = {key: torch.stack([st[key] for st in states]) for key in states[0]}
-    return x, aux, stacked
+    return x, aux, _stack_trees(states)
 
 
 def apply_stack_decode(
@@ -190,11 +221,14 @@ def apply_stack_decode(
     pos: int,
 ):
     """One-token pass → (x, caches); each layer writes its slice of the
-    stacked caches in place, and the same dict is returned."""
-    mixer, ffn = _check_ported(cfg)
-    for li in range(cfg.n_layers):
-        x = _apply_layer_decode(_index_tree(stack, li), x, cfg, rope, mixer, ffn,
-                                _index_tree(caches, li), pos)
+    stacked caches in place, and the same dict is returned.  An MoE
+    layer's auxiliary loss is dropped, as in the reference."""
+    n_units, slots = _units(cfg)
+    for ui in range(n_units):
+        up, cu = _index_tree(stack, ui), _index_tree(caches, ui)
+        for key, mixer, ffn in slots:
+            lp, cc = (up, cu) if key is None else (up[key], cu[key])
+            x = _apply_layer_decode(lp, x, cfg, rope, mixer, ffn, cc, pos)
     return x, caches
 
 
@@ -221,10 +255,18 @@ def _mamba_cache_defs(cfg: ModelConfig, batch: int) -> Dict[str, P]:
     }
 
 
+def _mixer_cache_defs(cfg: ModelConfig, mixer: str, batch: int, s_max: int) -> Dict[str, P]:
+    return (_attn_cache_defs(cfg, batch, s_max) if mixer == "attn"
+            else _mamba_cache_defs(cfg, batch))
+
+
 def cache_defs(cfg: ModelConfig, batch: int, s_max: int) -> Tree:
     """Declaration of the decode cache tree (P descriptors)."""
-    mixer, _ = _check_ported(cfg)
-    one = (_attn_cache_defs(cfg, batch, s_max) if mixer == "attn"
-           else _mamba_cache_defs(cfg, batch))
-    return _stack(one, cfg.n_layers)
-
+    if cfg.family == "hybrid":
+        period = {}
+        for s in range(cfg.attn_period):
+            mixer, _ = _slot_kind(cfg, s)
+            period[f"slot{s}"] = _mixer_cache_defs(cfg, mixer, batch, s_max)
+        return _stack(period, _n_periods(cfg), "period")
+    mixer, _ = _slot_kind(cfg, 0)
+    return _stack(_mixer_cache_defs(cfg, mixer, batch, s_max), cfg.n_layers)

@@ -82,11 +82,14 @@ class ServeEngine:
                 (1, self.cfg.n_vision_tokens, self.cfg.d_model),
                 dtype=torch.bfloat16, device=self.device,
             )
+        if self.cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (1, self.cfg.enc_seq, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device,
+            )
         logits, caches1 = self.model.prefill(self.params, batch, self.s_max)
-        # Write the single-sequence cache into the slot of the batched cache
-        # (leaves are stacked [L, B, ...]; batch is dim 1), in place.
-        for name, leaf in self._caches.items():
-            leaf[:, slot:slot + 1].copy_(caches1[name])
+        # Write the single-sequence cache into the slot of the batched cache.
+        _write_slot(self._caches, caches1, slot)
         first = int(torch.argmax(logits[0]))
         req.tokens_out.append(first)
         n_prefix = self.cfg.n_vision_tokens if self.cfg.family == "vlm" else 0
@@ -121,3 +124,14 @@ class ServeEngine:
                 del self.active[slot]
                 self._free.append(slot)
         return finished
+
+
+def _write_slot(batched: Tree, single: Tree, slot: int) -> None:
+    """Copy a 1-batch cache tree into slot ``slot`` of the batched tree, in
+    place, at any depth (the hybrid's caches nest under ``slot{s}``).
+    Cache leaves are stacked [L, B, ...]; batch is dim 1."""
+    for key, leaf in batched.items():
+        if isinstance(leaf, dict):
+            _write_slot(leaf, single[key], slot)
+        else:
+            leaf[:, slot:slot + 1].copy_(single[key])

@@ -661,3 +661,113 @@ def test_two_layer_full_width_eval_through_k4_at_the_models_length(card):
     assert mamba_scan.stats["launches"] - launches == 2
     loss_x = float(make_eval_step(Model(cfg.with_(ssm_impl="xla")))(params, batch)["loss"])
     assert np.isfinite(loss_k) and abs(loss_k - loss_x) <= 1e-4
+
+
+#: A full-width MoE layer in float32 on the card against its CPU copy: the
+#: router and the expert products are sums of 2 048 and 1 408 float32
+#: terms in another order (cuBLAS without TF32 against the CPU's BLAS), a
+#: few float32 ulps of outputs under 1 in size.
+MOE_LAYER_TOL = 1e-4
+
+
+def _moonshot_moe_layer(dev, dtype, seed=0):
+    """One moonshot-v1-16b-a3b MoE layer at full width (64 experts, top 6,
+    d 2 048, d_ff 1 408) and the prefill's 512 normed tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_defs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("moonshot-v1-16b-a3b").with_(param_dtype=dtype, compute_dtype=dtype)
+    p = init_params(moe_defs(cfg), torch.Generator(device=dev).manual_seed(seed), dtype, dev)
+    x = torch.randn((1, 512, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(getattr(torch, dtype))
+    return cfg, p, x
+
+
+def test_full_width_moe_layer_on_the_card_matches_its_cpu_copy(card):
+    """Identical routing (expert ids and kept entries), outputs and aux
+    within ``MOE_LAYER_TOL``, in float32."""
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x = _moonshot_moe_layer(card, "float32")
+    pc, xc = {k: v.cpu() for k, v in p.items()}, x.cpu()
+    with torch.no_grad():
+        y, aux = moe.moe_block(p, x, cfg)
+        yc, auxc = moe.moe_block(pc, xc, cfg)
+        routes = [moe.route(q, z.reshape(-1, cfg.d_model), cfg)[2] for q, z in ((p, x), (pc, xc))]
+    assert torch.equal(routes[0].cpu(), routes[1])
+    cap = moe.capacity(cfg, 512)
+    keeps = [moe.dispatch(r, cfg.n_experts, cap)[1].cpu() for r in routes]
+    assert cap == 64 and torch.equal(keeps[0], keeps[1])
+    assert float((y.cpu() - yc).abs().max()) <= MOE_LAYER_TOL
+    assert abs(float(aux) - float(auxc)) <= MOE_LAYER_TOL
+
+
+def test_moe_combine_on_the_card_is_bit_identical_across_runs(card):
+    """bf16 at full width: two runs give the same bits (the combine is a
+    loop over the k choices, with no atomics)."""
+    from repro_torch.models import moe
+
+    cfg, p, x = _moonshot_moe_layer(card, "bfloat16")
+    with torch.no_grad():
+        a, aux_a = moe.moe_block(p, x, cfg)
+        b, aux_b = moe.moe_block(p, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert bool(torch.isfinite(a.float()).all())
+
+
+def test_hybrid_admit_writes_only_its_slot_on_the_card(card):
+    """jamba's smoke config on the card: admitting into slot 2 writes that
+    slot's ``conv``, ``h``, ``k`` and ``v`` of every period and no other
+    slot."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+    from repro_torch.serving import Request, ServeEngine
+
+    model = Model(get_config("jamba-v0.1-52b", smoke=True).with_(remat=False))
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    eng = ServeEngine(model, params, 4, 64, device=card)
+    rng = np.random.default_rng(0)
+    for rid in range(2):
+        assert eng.admit(Request(rid=rid, prompt=rng.integers(2, 256, size=8).astype(np.int32),
+                                 max_new=4))
+    before = {path: t.clone() for path, t in flatten(eng._caches)}
+    assert eng.admit(Request(rid=2, prompt=rng.integers(2, 256, size=12).astype(np.int32),
+                             max_new=4))
+    kinds = set()
+    for path, leaf in flatten(eng._caches):
+        assert torch.equal(leaf[:, [0, 1, 3]], before[path][:, [0, 1, 3]]), path
+        assert not torch.equal(leaf[:, 2], before[path][:, 2]), path
+        kinds.add(path[-1])
+    assert kinds == {"conv", "h", "k", "v"}
+
+
+def test_whisper_decoder_prefill_through_k2_at_head_dim_64(card):
+    """whisper-base at full width, float32: ``decode_full`` under
+    ``attn_impl="pallas"`` launches K2 once per decoder layer (head dim 64)
+    and its logits equal the plain path's to float32 rounding; the encoder
+    launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("whisper-base").with_(param_dtype="float32", compute_dtype="float32",
+                                           attn_impl="pallas", remat=False)
+    assert cfg.resolved_head_dim == 64
+    params = Model(cfg).init(torch.Generator(device=card).manual_seed(0), card)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(2, cfg.vocab_size, size=(2, 128)),
+                           device=card)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    with torch.no_grad():
+        launches = flash_attention.stats["launches"]
+        enc = ed.encode(params, frames, cfg)
+        assert flash_attention.stats["launches"] == launches
+        got, _ = ed.decode_full(params, toks, enc, cfg)
+        assert flash_attention.stats["launches"] - launches == cfg.n_layers
+        want, _ = ed.decode_full(params, toks, enc, cfg.with_(attn_impl="xla"))
+    assert float((got - want).abs().max()) <= 1e-4

@@ -32,6 +32,9 @@ from repro_torch.serving import BassRouter, Request, ServeEngine
 from repro_torch.serving.kvcache import gather_pages
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: The MoE, hybrid and encoder-decoder families.
+NEW_FAMILIES = ["moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b",
+                "whisper-base"]
 
 
 @pytest.fixture(autouse=True)
@@ -82,7 +85,17 @@ def _serve(engine_cls, model, params, reqs, **kw):
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_engine_greedy_tokens_match_reference(impl):
-    model, tp, ref_model, jp = _pair("mistral-nemo-12b", "float32", impl, seed=1)
+    _engine_matches_reference("mistral-nemo-12b", impl)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_engine_greedy_tokens_match_reference_for_each_family(arch, impl):
+    _engine_matches_reference(arch, impl)
+
+
+def _engine_matches_reference(arch, impl):
+    model, tp, ref_model, jp = _pair(arch, "float32", impl, seed=1)
     lens, news = (8, 13, 5), (6, 4, 7)
 
     def reqs(cls):
@@ -120,6 +133,73 @@ def test_launcher_serves_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("finished on") == 3
     assert "served 3 requests / 9 tokens" in out
+
+
+def _to_jax(tree):
+    """The reference's parameter tree from the port's, bit for bit (the
+    inverse of ``params_from_jax``)."""
+    import ml_dtypes
+
+    if isinstance(tree, dict):
+        return {k: _to_jax(v) for k, v in tree.items()}
+    if tree.dtype == torch.bfloat16:
+        return jnp.asarray(tree.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+    return jnp.asarray(tree.numpy())
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_launcher_serves_each_family_like_the_reference_engine(arch, capsys):
+    """``launch/serve.py --device cpu --arch`` (smoke size, bfloat16) serves
+    every request, and the reference's engines and router, driven the same
+    way on the launcher's parameters, give the same greedy tokens."""
+    got = serve_launch.main(["--device", "cpu", "--arch", arch, "--requests", "4",
+                             "--max-new", "4", "--prompt-len", "8", "--s-max", "32",
+                             "--slots", "2"])
+    out = capsys.readouterr().out
+    assert out.count("finished on") == 4 and "served 4 requests / 16 tokens" in out
+    ref_model = RefModel(ref_get_config(arch, smoke=True).with_(remat=False))
+    jp = _to_jax(got["params"])
+    names = [f"pod0/host{i}" for i in range(2)]
+    engines = {n: RefEngine(ref_model, jp, 2, 32, name=n) for n in names}
+    reqs = [RefRequest(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                       prefix_hash=r.prefix_hash) for r in got["requests"]]
+    serve_launch.drive(engines, RefRouter(names), reqs, log=None)
+    assert {r.rid: r.tokens_out for r in got["requests"]} == {r.rid: r.tokens_out for r in reqs}
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-base"])
+def test_admit_writes_only_its_slot_of_nested_caches(arch):
+    """Admitting into slot 2 writes that slot of every cache leaf (the
+    hybrid's ``slot{s}`` ``conv``, ``h``, ``k``, ``v``; the encoder-decoder's
+    ``k``, ``v``, ``ek``, ``ev``) with the request's own prefill caches,
+    and changes no other slot."""
+    from repro_torch.models.params import flatten
+
+    model, tp, _, _ = _pair(arch)
+    eng = ServeEngine(model, tp, slots=4, s_max=32, device="cpu")
+    rng = np.random.default_rng(9)
+    for rid in range(2):
+        assert eng.admit(Request(rid=rid, prompt=rng.integers(2, 256, size=6).astype(np.int32),
+                                 max_new=4))
+    before = {p: t.clone() for p, t in flatten(eng._caches)}
+    prompt = rng.integers(2, 256, size=10).astype(np.int32)
+    assert eng.admit(Request(rid=2, prompt=prompt, max_new=4)) and 2 in eng.active
+    batch = {"tokens": torch.as_tensor(prompt[None]).long()}
+    if model.cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, model.cfg.enc_seq, model.cfg.d_model),
+                                      dtype=torch.bfloat16)
+    with torch.no_grad():
+        _, single = model.prefill(tp, batch, 32)
+    single = dict(flatten(single))
+    kinds = set()
+    for path, leaf in flatten(eng._caches):
+        others = [i for i in range(4) if i != 2]
+        assert torch.equal(leaf[:, others], before[path][:, others]), path
+        assert torch.equal(leaf[:, 2:3], single[path].to(leaf.dtype)), path
+        assert not torch.equal(leaf[:, 2], before[path][:, 2]), path
+        kinds.add(path[-1])
+    assert kinds == ({"conv", "h", "k", "v"} if arch == "jamba-v0.1-52b"
+                     else {"k", "v", "ek", "ev"})
 
 
 def test_drive_reports_prefills_and_ticks():
