@@ -22,16 +22,38 @@ buffer in the compute dtype in ascending expert order, rounding after each
 add, as the reference's sorted scatter-add does.  The combine is a loop
 over the k choices, so it has no atomics and gives the same bits on every
 run.
+
+``recording()`` lets a caller see each call's routing (router
+probabilities, expert ids, kept entries) without changing what the layer
+computes: the tests hold it against the reference's, and the card's smoke
+run reports drop rates and routing differences from it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .params import P
+
+_records: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[dict]]:
+    """While active, every ``moe_block`` call appends ``{"probs": [T,E]
+    float32, "gate_idx": [T,k], "keep": [T·k] (dispatch order)}``, detached,
+    to the list it yields, in call order (a checkpointed pass appends again
+    when its backward recomputes the layer)."""
+    global _records
+    saved, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = saved
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -104,6 +126,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
 
     cap = capacity(cfg, t)
     order, keep, dest = dispatch(gate_idx, e, cap)
+    if _records is not None:
+        _records.append(dict(probs=probs.detach(), gate_idx=gate_idx, keep=keep))
     tok_idx = order // k                                  # source token
     buf = xt.new_zeros((e * cap + 1, d))
     buf[dest] = xt[tok_idx]     # rows distinct but the discarded overflow row

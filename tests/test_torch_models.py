@@ -132,13 +132,14 @@ def _batches(cfg, rng, b=2, s=32):
     return jb, tb
 
 
-def _assert_caches_close(got, want, atol):
+def _assert_caches_close(got, want, atol, rows=slice(None)):
+    """Every cache leaf's shape, and its batch ``rows`` (axis 1) at ``atol``."""
     got, want = dict(flatten(got)), dict(flatten(want))
     assert set(got) == set(want)
     for path in got:
         assert tuple(got[path].shape) == want[path].shape, path
-        np.testing.assert_allclose(_f32(got[path]), _f32(want[path]), atol=atol,
-                                   err_msg=str(path))
+        np.testing.assert_allclose(_f32(got[path])[:, rows], _f32(want[path])[:, rows],
+                                   atol=atol, err_msg=str(path))
 
 
 #: Two router probabilities closer than this (relative) are a tie within
@@ -151,19 +152,13 @@ NEAR_TIE = 2.0 ** -7
 @pytest.fixture
 def routing(monkeypatch):
     """Every MoE call's (probs, expert ids), in call order, from each
-    package: the port's through ``moe.route``, the reference's through a
-    callback beside its gather dispatch (which runs inside ``lax.scan``)."""
+    package: the port's through ``moe.recording()``, the reference's
+    through a callback beside its gather dispatch (which runs inside
+    ``lax.scan``)."""
     from repro.models import moe as ref_moe
     from repro_torch.models import moe
 
-    port, ref = [], []
-    route = moe.route
-
-    def port_route(p, xt, cfg):
-        out = route(p, xt, cfg)
-        port.append((out[0].float().numpy(), out[2].numpy()))
-        return out
-
+    ref = []
     gather = ref_moe._moe_block_gather
 
     def ref_gather(p, x, cfg):
@@ -174,27 +169,50 @@ def routing(monkeypatch):
                            probs, jax.lax.top_k(probs, cfg.top_k)[1], ordered=True)
         return gather(p, x, cfg)
 
-    monkeypatch.setattr(moe, "route", port_route)
     monkeypatch.setattr(ref_moe, "_moe_block_gather", ref_gather)
-    return port, ref
+    with moe.recording() as port:
+        yield port, ref
 
 
-def _same_routing(routing) -> bool:
-    """Whether both packages chose the same experts in every MoE call since
-    the last one; where they did not, each differing choice must be a near
-    tie in the reference's probabilities (a bfloat16 rounding flipped it).
-    Clears the records."""
+def _kept(gate_idx, cfg):
+    """[T, k]: whether each (token, choice) entry of ``gate_idx`` is within
+    capacity (the port's dispatch, which ``test_torch_moe`` holds to the
+    reference's exactly)."""
+    from repro_torch.models import moe
+
+    t = gate_idx.shape[0]
+    order, keep, _ = moe.dispatch(torch.as_tensor(gate_idx), cfg.n_experts,
+                                  moe.capacity(cfg, t))
+    kept = torch.zeros_like(keep)
+    kept[order] = keep
+    return kept.view(gate_idx.shape).numpy()
+
+
+def _flip_rows(routing, cfg, batch, flipped):
+    """Adds to the set ``flipped`` the batch rows whose routing differs
+    between the packages in an MoE call since the last one: an expert id,
+    or an entry kept in one package and dropped in the other (the batch
+    shares the capacity).  A row's first differing choices must be near
+    ties in the reference's probabilities (a bfloat16 rounding flipped
+    them); after them the row carries other experts' outputs, and its later
+    choices are not held to that.  Clears the records."""
     port, ref = routing
     assert len(port) == len(ref)
-    same = True
-    for (_, got), (probs, want) in zip(port, ref):
+    for rec, (probs, want) in zip(port, ref):
+        got = rec["gate_idx"].numpy()
+        per_row = got.shape[0] // batch
+        new = set()
         for t, j in zip(*np.nonzero(got != want)):
-            a, b = probs[t, want[t, j]], probs[t, got[t, j]]
-            assert abs(a - b) <= NEAR_TIE * max(a, b), (t, j, a, b)
-            same = False
+            if t // per_row not in flipped:
+                a, b = probs[t, want[t, j]], probs[t, got[t, j]]
+                assert abs(a - b) <= NEAR_TIE * max(a, b), (t, j, a, b)
+            new.add(int(t // per_row))
+        new.update(int(t // per_row)
+                   for t in np.nonzero((_kept(got, cfg) != _kept(want, cfg)).any(-1))[0])
+        flipped |= new
     port.clear()
     ref.clear()
-    return same
+    return flipped
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -204,37 +222,38 @@ def test_prefill_and_decode_match_reference(arch, dtype, impl, routing):
     """Prefill, then two decode steps, logits and caches at ``TOL``.  MoE
     routing is discontinuous: in bfloat16 a near tie (``NEAR_TIE``) may
     flip between the packages, and moves the logits by their own size;
-    float32 must route identically.  A step whose routing flipped is held
-    to the near-tie rule instead, and the comparison ends there (every
-    later state carries the other expert's output)."""
+    float32 must route identically.  A batch row whose routing flipped is
+    held to the near-tie rule instead, and its logits and caches are not
+    compared from that step on (every later state of the row carries the
+    other expert's output); the other row still is."""
     model, tp, ref_model, jp = _pair(arch, dtype, impl)
     cfg = model.cfg
     rng = np.random.default_rng(len(arch))
     jb, tb = _batches(cfg, rng)
-    s_max = 64
+    b, s_max, flipped = 2, 64, set()
+
+    def compare(tl, jl, tc, jc):
+        _flip_rows(routing, cfg, b, flipped)
+        assert dtype == "bfloat16" or not flipped
+        rows = [r for r in range(b) if r not in flipped]
+        np.testing.assert_allclose(_f32(tl)[rows], _f32(jl)[rows], atol=TOL[dtype])
+        _assert_caches_close(tc, jc, TOL[dtype], rows)
+
     jl, jc = ref_model.prefill(jp, jb, s_max)
     with torch.no_grad():
         tl, tc = model.prefill(tp, tb, s_max)
     assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
-    if not _same_routing(routing):
-        assert dtype == "bfloat16"
-        return
-    np.testing.assert_allclose(_f32(tl), _f32(jl), atol=TOL[dtype])
-    _assert_caches_close(tc, jc, TOL[dtype])
+    compare(tl, jl, tc, jc)
     pos = 32 + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
     for step in range(2):
-        tok = rng.integers(2, cfg.vocab_size, size=(2, 1)).astype(np.int32)
+        tok = rng.integers(2, cfg.vocab_size, size=(b, 1)).astype(np.int32)
         jl, jc = ref_model.decode(jp, jnp.asarray(tok), jnp.int32(pos + step), jc)
         with torch.no_grad():
             tl, tc = model.decode(tp, torch.as_tensor(tok).long(), pos + step, tc)
         if cfg.family == "encdec":          # the reference keeps [B, 1, V]
             jl = jl[:, 0]
         assert tuple(tl.shape) == jl.shape
-        if not _same_routing(routing):
-            assert dtype == "bfloat16"
-            return
-        np.testing.assert_allclose(_f32(tl), _f32(jl), atol=TOL[dtype])
-        _assert_caches_close(tc, jc, TOL[dtype])
+        compare(tl, jl, tc, jc)
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b"])

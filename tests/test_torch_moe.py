@@ -184,3 +184,27 @@ def test_capacity_matches_reference():
         for t in (1, 4, 8, 512, 2048, 4096):
             assert moe.capacity(cfg, t) == ref_moe.capacity(ref_cfg, t)
     assert moe.capacity(get_config("moonshot-v1-16b-a3b"), 512) == 64
+
+
+def test_recording_sees_the_reference_routing_and_changes_nothing():
+    """``moe.recording()`` hands back each call's probabilities, expert ids
+    and kept entries (these equal the reference's), leaves the output as it
+    was, nests, and records nothing once it has closed."""
+    cfg, tp, ref_cfg, jp = _pair("moonshot-v1-16b-a3b")
+    tx, jx = _x(cfg, (2, 40), seed=5)
+    with torch.no_grad():
+        plain, _ = moe.moe_block(tp, tx, cfg)
+        with moe.recording() as outer:
+            with moe.recording() as inner:
+                y, _ = moe.moe_block(tp, tx, cfg)
+            moe.moe_block(tp, tx[:1], cfg)
+        moe.moe_block(tp, tx, cfg)
+    assert torch.equal(y, plain)
+    assert len(inner) == 1 and len(outer) == 1
+    assert tuple(outer[0]["gate_idx"].shape) == (40, cfg.top_k)
+    gate_idx, _, keep = _ref_routing(jp, jx, ref_cfg)
+    assert np.array_equal(inner[0]["gate_idx"].numpy(), gate_idx)
+    assert np.array_equal(inner[0]["keep"].numpy(), keep)
+    probs = np.asarray(jax.nn.softmax(
+        (jx.reshape(-1, cfg.d_model) @ jp["router"]).astype(jnp.float32), axis=-1))
+    np.testing.assert_allclose(inner[0]["probs"].numpy(), probs, rtol=1e-6, atol=1e-7)
