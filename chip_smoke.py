@@ -99,6 +99,25 @@ result lines are printed:
               float32 greedy tokens on one period, kernel = plain; (c)
               whisper-base with zero frames and 128-token prompts (K2 at
               head dim 64), float32 greedy tokens kernel = plain.
+10. trainer — (a) internvl2-1b at full width and depth through
+              ``launch/train.py``'s ``main`` (6 steps of 8 × 1 024
+              positions with 256 vision embeddings, a checkpoint every 3
+              steps): losses and grad norms finite and positive, the
+              parameters moved, the epoch's shard placement launched K1
+              once per ``wave_scan`` and its fetches equal the ``numpy``
+              backend's, the final checkpoint restores bit for bit onto
+              the card; step time, tokens/s, peak memory, one profiled
+              step's idle share, the seconds ``save`` held the loop and
+              each write took.  (b) ``--preset 100m``: 8 straight steps
+              against 4 then ``--resume`` for 4 more, each leg its own
+              process; the two step-8 checkpoints the same bytes.  (c)
+              ``plan_epoch`` and ``prefetch_epoch`` of 16 384 shards of
+              512 MB on the 4 096 hosts of phase 3, ``cuda`` then
+              ``numpy``, byte-identical (a leg past 60 s halves the shard
+              count, printed).  (d) ``tree_compress_with_feedback`` over
+              (a)'s gradient tree on the card against a CPU copy, bit for
+              bit, and ``cross_pod_allreduce`` plain and compressed over a
+              one-rank NCCL group against the host's sum.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -2012,6 +2031,372 @@ def phase_models():
     return out
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+# (a) internvl2-1b (arXiv:2404.16821; hf:OpenGVLab/InternVL2-1B) whole:
+# 493 709 440 parameters, the largest of the ten configurations whose bf16
+# parameters, float32 moments and step fit one H100 (starcoder2-3b, 3.18 B,
+# would need about 83 GB at the 26 bytes a parameter phase 7 read).  Trained
+# through ``launch/train.py``'s ``main``: 6 steps of 8 × 1 024 positions
+# (256 of them vision embeddings), seeded random parameters, a checkpoint
+# every 3 steps (about 4.9 GB each: bf16 parameters, float32 m and v).
+TRAINER = dict(arch="internvl2-1b", steps=6, batch=8, seq=1024, ckpt_every=3)
+# (b) the 126 M preset at full size: 8 straight steps, and 4 then --resume
+# for 4 more, each leg its own process; the two step-8 checkpoints equal.
+RESTART = dict(preset="100m", steps=8, cut=4, batch=8, seq=256)
+# (c) plan_epoch then prefetch_epoch on phase 3's 4 096 hosts with
+# examples/bass_cluster_demo.py's 512 MB shards, three replicas, seed 7, an
+# idle backlog; a cuda leg past EPOCH_LIMIT_S halves the shard count.
+EPOCH = dict(pods=16, hosts=256, shards=16_384, size_bytes=512e6, replication=3, seed=7)
+EPOCH_LIMIT_S = 60.0
+
+
+def _same_bits(a, b):
+    """Same shape, dtype and bits (floats compared as integers)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(as_int), b.view(as_int)
+    return bool(torch.equal(a, b))
+
+
+def _state_leaves(params, opt_state):
+    """Every tensor of (params, AdamW state) in a fixed order."""
+    from repro_torch.models.params import flatten
+
+    return ([t for _, t in flatten(params)] + [t for _, t in flatten(opt_state.m)]
+            + [t for _, t in flatten(opt_state.v)] + [opt_state.count])
+
+
+def _grads(model, params, batch):
+    """The gradient tree of ``model.loss`` at ``params`` on ``batch``."""
+    import torch
+
+    from repro_torch.models.params import flatten, unflatten
+
+    paths, leaves = zip(*flatten(params))
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        loss, _ = model.loss(unflatten(paths, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return unflatten(paths, [g.detach() for g in grads])
+
+
+def _phase10_trainer(dev):
+    """(a) internvl2-1b through ``launch/train.py``: every count set to 0
+    just before ``main`` and read just after → (report, gradient tree)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.convert import canon_fetches
+    from repro_torch.kernels import ts_plan
+    from repro_torch.launch import train
+    from repro_torch.models import count_params
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+
+    spec = TRAINER
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="ckpt_trainer_", dir=os.path.join(HERE, "build"))
+    argv = ["--arch", spec["arch"], "--steps", str(spec["steps"]), "--batch",
+            str(spec["batch"]), "--seq", str(spec["seq"]), "--ckpt-every",
+            str(spec["ckpt_every"]), "--ckpt-dir", ckdir, "--log-every", "1",
+            "--seed", str(SEED)]
+    try:
+        ts_plan.set_backend("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        k1, calls = _counts()
+        cfg = res["cfg"]
+        params, opt_state = res["params"], res["opt_state"]
+
+        ts_plan.set_backend("numpy")
+        _, numpy_fetches, _ = train.epoch_placement()
+        ts_plan.set_backend("cuda")
+
+        t0 = time.perf_counter()
+        step, (rp, ro) = Checkpointer(ckdir).restore((params, opt_state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got, want = _state_leaves(rp, ro), _state_leaves(params, opt_state)
+        restored = dict(step=step, leaves=len(want), seconds=restore_s,
+                        on_card=all(t.device.type == "cuda" for t in got),
+                        bitwise=all(_same_bits(g, w) for g, w in zip(got, want, strict=True)))
+        del rp, ro, got, want
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckdir, f"step_{step:09d}", n))
+                         for n in ("shard_host0.npz", "manifest.json"))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    init = Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    moved = {"/".join(path): float((new != old).float().mean())
+             for (path, new), (_, old) in zip(flatten(params), flatten(init))}
+    sizes = {"/".join(path): t.numel() for path, t in flatten(init)}
+    moved_all = sum(moved[k] * sizes[k] for k in moved) / sum(sizes.values())
+    del init
+    _, profile = _profiled(lambda: res["train_step"](params, opt_state, res["batch"]))
+    grads = _grads(Model(cfg), params, res["batch"])
+
+    losses = [v for _, v in res["losses"]]
+    norms = [v for _, v in res["grad_norms"]]
+    p50 = float(np.median(res["step_s"]))
+    out = dict(
+        config=spec, argv=argv, params=count_params(Model(cfg).defs()), seconds=main_s,
+        losses=losses, grad_norms=norms, step_s=res["step_s"], step_p50_s=p50,
+        tokens_s=spec["batch"] * spec["seq"] / p50, tokens_s_trainer=res["tokens_s"],
+        max_memory_allocated=peak, moved_fraction=moved_all, moved_fraction_by_leaf=moved,
+        profile_step=profile, save_s=res["save_s"], write_s=res["write_s"],
+        checkpoint_bytes=ckpt_bytes, restore=restored,
+        k1_launches=k1.get("launches", 0), k1_launches_window=k1.get("launches_window", 0),
+        wave_scan_calls=calls["wave_scan"], placement_device_stats=res["device_stats"],
+        fetches=len(res["assignments"]),
+        local=sum(1 for a in res["assignments"] if a.source is None),
+        fetches_identical=canon_fetches(res["assignments"]) == canon_fetches(numpy_fetches),
+        steps_logged=len(losses))
+    out["ok"] = dict(
+        finite=len(losses) == spec["steps"]
+        and all(np.isfinite(v) and v > 0 for v in losses + norms),
+        moved=moved_all >= 0.9,
+        k1=calls["wave_scan"] >= 1 and out["k1_launches"] == calls["wave_scan"]
+        == out["k1_launches_window"],
+        fetches=out["fetches_identical"],
+        restore=restored["step"] == spec["steps"] and restored["on_card"]
+        and restored["bitwise"])
+    return out, grads
+
+
+def _npz_members(path):
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return {n: zf.read(n) for n in zf.namelist()}
+
+
+def _phase10_restart():
+    """(b) ``python -m repro_torch.launch.train --preset 100m``: 8 straight
+    steps in one process, beside 4 steps and then ``--resume`` for 4 more
+    in two others; every leaf of the two step-8 checkpoints must be the same
+    bytes."""
+    import shutil
+    import tempfile
+
+    spec = RESTART
+    root = tempfile.mkdtemp(prefix="ckpt_restart_", dir=os.path.join(HERE, "build"))
+    dirs = dict(straight=os.path.join(root, "straight"), resumed=os.path.join(root, "resumed"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--preset", spec["preset"],
+            "--batch", str(spec["batch"]), "--seq", str(spec["seq"]), "--log-every", "1",
+            "--ckpt-every", "1000", "--seed", str(SEED)]
+
+    def start(steps, ckdir, *extra):
+        return subprocess.Popen(base + ["--steps", str(steps), "--ckpt-dir", ckdir, *extra],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                env=env, cwd=HERE)
+
+    def finish(proc, name):
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"(b) the {name} leg exited {proc.returncode}: {out[-3000:]}")
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        straight = start(spec["steps"], dirs["straight"])  # beside the other two
+        logs = dict(first=finish(start(spec["cut"], dirs["resumed"]), "first"))
+        logs["resume"] = finish(start(spec["steps"], dirs["resumed"], "--resume"), "resume")
+        logs["straight"] = finish(straight, "straight")
+        seconds = time.perf_counter() - t0
+        last = f"step_{spec['steps']:09d}"
+        a = _npz_members(os.path.join(dirs["straight"], last, "shard_host0.npz"))
+        b = _npz_members(os.path.join(dirs["resumed"], last, "shard_host0.npz"))
+        manifests = [open(os.path.join(d, last, "manifest.json")).read() for d in dirs.values()]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    differ = sorted(n for n in a if a[n] != b.get(n))
+    out = dict(config=spec, seconds=seconds, leaves=len(a), leaves_differing=differ,
+               manifests_equal=manifests[0] == manifests[1], same_keys=set(a) == set(b),
+               resumed=f"resumed from step {spec['cut']}" in logs["resume"],
+               log_tails={k: v.strip().splitlines()[-3:] for k, v in logs.items()})
+    out["ok"] = dict(identical=not differ and out["same_keys"] and out["manifests_equal"],
+                     resumed=out["resumed"])
+    return out
+
+
+def _epoch_instance(n_shards):
+    """(hosts, shards) of the fleet-scale epoch: ``uniform_shards`` draws
+    each shard's replicas from the 4 096 hosts (seconds on the host)."""
+    from repro_torch.data import uniform_shards
+
+    spec = EPOCH
+    hosts = [f"pod{p}/host{h}" for p in range(spec["pods"]) for h in range(spec["hosts"])]
+    return hosts, uniform_shards(n_shards, hosts, spec["size_bytes"],
+                                 replication=spec["replication"], seed=spec["seed"])
+
+
+def _epoch_leg(backend, hosts, shards):
+    """plan_epoch, then prefetch_epoch, on ``backend`` → per call: seconds,
+    K1 launches, ``wave_scan`` calls and the schedules' bit-exact images."""
+    import torch
+
+    from repro_torch.convert import canon, canon_fetches
+    from repro_torch.core.topology import tpu_dcn_fabric
+    from repro_torch.data import plan_epoch, prefetch_epoch
+    from repro_torch.kernels import ts_plan
+
+    ts_plan.set_backend(backend)
+    fabric = tpu_dcn_fabric(EPOCH["pods"], EPOCH["hosts"])
+    out, images = {}, {}
+    for name, fn in (("plan_epoch", plan_epoch), ("prefetch_epoch", prefetch_epoch)):
+        _reset_counts()
+        t0 = time.perf_counter()
+        fetches, sched = fn(fabric, hosts, {h: 0.0 for h in hosts}, shards)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k1, calls = _counts()
+        out[name] = dict(seconds=dt, k1_launches=k1.get("launches", 0),
+                         wave_scan_calls=calls["wave_scan"], makespan=sched.makespan,
+                         local=sum(1 for f in fetches if f.source is None))
+        images[name] = (canon_fetches(fetches), canon(sched.assignments))
+    return out, images
+
+
+def _phase10_epoch():
+    """(c) the fleet-scale epoch placement on ``cuda``, then ``numpy``."""
+    n, cuts = EPOCH["shards"], []
+    while True:
+        hosts, shards = _epoch_instance(n)
+        cuda, cuda_images = _epoch_leg("cuda", hosts, shards)
+        slowest = max(leg["seconds"] for leg in cuda.values())
+        if slowest <= EPOCH_LIMIT_S or n <= 1024:
+            break
+        cuts.append(f"shards {n} -> {n // 2} (a cuda leg took {slowest:.1f} s)")
+        print(f"[trainer] (c) {cuts[-1]}", flush=True)
+        n //= 2
+    numpy_legs, numpy_images = _epoch_leg("numpy", hosts, shards)
+    from repro_torch.kernels import ts_plan
+
+    ts_plan.set_backend("cuda")
+    identical = {k: cuda_images[k] == numpy_images[k] for k in cuda_images}
+    out = dict(config=dict(EPOCH, shards=n), cuts=cuts, cuda=cuda, numpy=numpy_legs,
+               identical=identical,
+               k1_launches=sum(leg["k1_launches"] for leg in cuda.values()))
+    out["ok"] = dict(identical=all(identical.values()),
+                     k1=all(leg["k1_launches"] >= 1
+                            and leg["k1_launches"] == leg["wave_scan_calls"]
+                            for leg in cuda.values()))
+    return out
+
+
+def _phase10_compress(grads, dev):
+    """(d) error-feedback int8 compression of (a)'s gradient tree on the
+    card against a CPU copy; then ``cross_pod_allreduce``, plain and
+    compressed, over a one-rank NCCL group on the card against the sum
+    computed on the host."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import cross_pod_allreduce
+    from repro_torch.distributed.grad_compress import (compress, decompress,
+                                                       tree_compress_with_feedback)
+    from repro_torch.models.params import flatten, unflatten
+
+    paths = [p for p, _ in flatten(grads)]
+    to_cpu = lambda tree: unflatten(paths, [t.cpu() for _, t in flatten(tree)])  # noqa: E731
+    # A carried residual of the gradients' own size, so the sum x + residual
+    # is exercised too.
+    carried = unflatten(paths, [g.float() * 0.5 for _, g in flatten(grads)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = tree_compress_with_feedback(grads, carried)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = tree_compress_with_feedback(to_cpu(grads), to_cpu(carried))
+    host_s = time.perf_counter() - t0
+    same = [all(_same_bits(a, b) for (_, a), (_, b) in zip(flatten(c), flatten(h)))
+            for c, h in zip(card, host)]
+    rounds = [dict(payloads=same[0], scales=same[1], residuals=same[2], card_s=card_s,
+                   cpu_s=host_s, max_abs_residual=max(float(t.abs().max())
+                                                      for _, t in flatten(card[2])))]
+    n_elems = sum(g.numel() for _, g in flatten(grads))
+    del card, host, carried
+
+    x = max((g for _, g in flatten(grads)), key=lambda g: g.numel()).float()
+    init_file = tempfile.mktemp(prefix="nccl_init_", dir=os.path.join(HERE, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", world_size=1, rank=0)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = cross_pod_allreduce(x, compressed=False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed = cross_pod_allreduce(x, compressed=True)
+        torch.cuda.synchronize()
+        packed_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(init_file):
+            os.remove(init_file)
+    xc = x.cpu()
+    want_packed = decompress(*compress(xc), tuple(xc.shape))
+    allreduce = dict(group="nccl, one rank on the card", numel=x.numel(),
+                     plain_equal=_same_bits(plain, xc), plain_s=plain_s,
+                     compressed_equal=_same_bits(packed, want_packed), compressed_s=packed_s,
+                     compressed_max_err=float((packed.cpu() - xc).abs().max()),
+                     max_abs_x=float(xc.abs().max()))
+    out = dict(gradient_elements=n_elems, rounds=rounds, allreduce=allreduce)
+    out["ok"] = dict(
+        compress=all(r["payloads"] and r["scales"] and r["residuals"] for r in rounds),
+        allreduce=allreduce["plain_equal"] and allreduce["compressed_equal"])
+    return out
+
+
+def phase_trainer():
+    """Phase 10: the trainer entry point on the card, a resume against a
+    straight run, the fleet-scale epoch placement, and the gradient
+    compression and cross-pod all-reduce."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    parts = {}
+    t = time.perf_counter()
+    parts["trainer"], grads = _phase10_trainer(cuda)
+    parts["trainer"]["phase_s"] = time.perf_counter() - t
+    _free()
+    for name, fn in (("restart", _phase10_restart), ("epoch", _phase10_epoch),
+                     ("compress", lambda: _phase10_compress(grads, cuda))):
+        t = time.perf_counter()
+        parts[name] = fn()
+        parts[name]["phase_s"] = time.perf_counter() - t
+    del grads
+    _free()
+    seconds = time.perf_counter() - t0
+    log("trainer", seconds=seconds, **parts)
+    bad = [f"{name}.{k}" for name, part in parts.items() for k, ok in part["ok"].items()
+           if not ok]
+    if bad:
+        raise AssertionError(f"phase 10: failed gates {bad}")
+    return parts
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -2081,6 +2466,7 @@ def main() -> int:
     train = phase_train()
     sched = phase_scheduler()
     models = phase_models()
+    trainer = phase_trainer()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -2092,6 +2478,8 @@ def main() -> int:
         "launches_hierarchy_path": sched["launches"]["hierarchy"],
         "launches_recovery_path": sched["launches"]["recovery"],
         "launches_fault_storm_path": sched["launches"]["fault_storm"],
+        "launches_trainer_path": trainer["trainer"]["k1_launches"],
+        "launches_epoch_placement": trainer["epoch"]["k1_launches"],
         "max_abs_err": timing["max_abs_err"],
         "checked": timing["checked"],
         "bitwise": True,

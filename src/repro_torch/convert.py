@@ -6,7 +6,8 @@ import nothing of it, so the port and the reference can run side by side
 in one process (the parity tests) without either depending on the other.
 
 :func:`canon` is the bit-exact image of a schedule that those comparisons
-diff: every float as ``float.hex``.
+diff, :func:`canon_fetches` that of an epoch's shard fetches: every float
+as ``float.hex``.
 """
 from __future__ import annotations
 
@@ -85,6 +86,15 @@ def canon(assignments: Iterable) -> tuple:
             ),
         ))
     return tuple(out)
+
+
+def canon_fetches(fetches: Iterable) -> tuple:
+    """Hashable bit-exact image of ``plan_epoch``'s fetch assignments."""
+    return tuple(
+        (f.shard_id, f.worker, f.source, float(f.start).hex(), float(f.ready).hex(),
+         tuple(f.slots))
+        for f in sorted(fetches, key=lambda f: f.shard_id)
+    )
 
 
 def params_from_jax(tree, device="cuda", dtype=None):

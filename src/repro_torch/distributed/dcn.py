@@ -10,13 +10,13 @@ paper's treatment:
   whose TS slots are reserved on the pod trunks *for the projected step
   cadence* — Pre-BASS-style, slots are booked one step ahead so the flow
   never waits;
-* optional int8 error-feedback compression shrinks the flow 4× when the
-  DCN term dominates the roofline.
+* optional int8 error-feedback compression (``grad_compress``) shrinks the
+  flow 4× when the DCN term dominates the roofline;
+* ``cross_pod_allreduce`` is the pod all-reduce (the DCN hop) over a
+  ``torch.distributed`` process group whose ranks are the pods.
 
-This module holds only the controller-side bookkeeping (:class:`StepFlow`,
-:class:`CrossPodSync`), copied from ``repro.distributed.dcn`` unchanged;
-the all-reduce itself (``cross_pod_allreduce``) and gradient compression
-wait for ROADMAP.md §1 item 7.
+The controller-side bookkeeping (:class:`StepFlow`, :class:`CrossPodSync`)
+is copied from ``repro.distributed.dcn`` unchanged.
 """
 from __future__ import annotations
 
@@ -26,6 +26,37 @@ from typing import Dict, Optional
 from ..core.controller import ClusterController
 from ..core.timeslot import TimeSlotLedger, TransferPlan
 from ..core.topology import Fabric, storage_hosts, tpu_dcn_fabric
+
+
+def cross_pod_allreduce(x, group=None, compressed: bool = False):
+    """All-reduce ``x`` over ``group``, the process group whose ranks are
+    the pods (default: the whole world) — the DCN hop only.
+
+    Uncompressed it is ``all_reduce(SUM)``.  With ``compressed=True`` the
+    payload crosses the pod axis as int8 + per-block scales: every rank's
+    (payload, scales) pair is all-gathered and the dequantised values are
+    summed in rank order — the exact sum of per-pod approximations, as the
+    reference's ``shard_map`` body computes it (error feedback is applied
+    by the caller, which owns the residual state).  The result is float32."""
+    import torch
+    import torch.distributed as dist
+
+    from .grad_compress import compress
+
+    if not compressed:
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+    q, scale = compress(x)
+    world = dist.get_world_size(group)
+    qg = [torch.empty_like(q) for _ in range(world)]
+    sg = [torch.empty_like(scale) for _ in range(world)]
+    dist.all_gather(qg, q, group=group)
+    dist.all_gather(sg, scale, group=group)
+    vals = qg[0].float() * sg[0][:, None]
+    for q_r, s_r in zip(qg[1:], sg[1:]):
+        vals = vals + q_r.float() * s_r[:, None]
+    return vals.reshape(-1)[: x.numel()].reshape(x.shape)
 
 
 @dataclass

@@ -1,1 +1,2 @@
-"""Launchers (the serving one in this slice)."""
+"""Launchers: training (``train``) and serving (``serve``), with the
+meshes and input specs they share."""

@@ -29,20 +29,7 @@ from ..configs import ARCH_NAMES, get_config
 from ..configs.base import ModelConfig
 from ..models.model import Model
 from ..serving import BassRouter, Request, ServeEngine
-
-#: The reference's ``launch/train.py`` preset, kept here so the port does
-#: not import the reference.
-TINY = ModelConfig(
-    name="tiny",
-    family="dense",
-    n_layers=2,
-    d_model=128,
-    n_heads=4,
-    n_kv_heads=2,
-    head_dim=32,
-    d_ff=384,
-    vocab_size=512,
-)
+from .train import TINY
 
 
 def make_requests(cfg: ModelConfig, n: int, prompt_len: int, max_new: int,

@@ -11,9 +11,10 @@ residual path (standard capacity-factor semantics).
 
 The reference's expert-parallel dispatch (``moe_impl="a2a"``: a
 ``shard_map`` with all-to-alls along the mesh's ``model`` axis) runs only
-under an active mesh; without one it takes this gather path.  The port has
-no mesh yet (ROADMAP.md, queue 1, item 7), so ``"a2a"`` always takes the
-gather path here.
+under an active mesh; without one it takes this gather path.  The port's
+mesh (``launch/mesh.py``) places no tensor across devices and the a2a
+dispatch is not ported (ROADMAP.md §1 item 7), so ``"a2a"`` always takes
+the gather path here.
 
 Ties and order follow the reference exactly: top-k keeps the lower expert
 index among equal probabilities (``lax.top_k``), the dispatch sort is

@@ -778,3 +778,61 @@ def test_whisper_decoder_prefill_through_k2_at_head_dim_64(card):
         assert flash_attention.stats["launches"] - launches == cfg.n_layers
         want, _ = ed.decode_full(params, toks, enc, cfg.with_(attn_impl="xla"))
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# -- the trainer's modules on the card -------------------------------------------------
+
+
+def _raw(x):
+    """``x`` on the CPU with its floats as same-width integers (bits)."""
+    x = x.detach().cpu()
+    if x.is_floating_point():
+        x = x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()])
+    return x
+
+
+def test_checkpoint_roundtrip_on_the_card(card, tmp_path):
+    """bf16, float32 and int32 leaves on the card, params and AdamW state:
+    the async save snapshots before it returns (the leaves change after),
+    and restore puts every leaf back on the card, bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+    from repro_torch.optim import AdamW
+
+    params = Model(get_config("internvl2-1b", smoke=True)).init(
+        torch.Generator(device=card).manual_seed(0), card)
+    state = AdamW().init(params)
+    state.m["embed"].add_(0.25)
+    leaves = lambda p, s: ([t for _, t in flatten(p)] + [t for _, t in flatten(s.m)]  # noqa: E731
+                           + [t for _, t in flatten(s.v)] + [s.count])
+    want = [t.clone() for t in leaves(params, state)]
+    ck = Checkpointer(tmp_path)
+    ck.save(4, (params, state))
+    for t in leaves(params, state):
+        t.add_(1)
+    ck.wait()
+    step, (rp, rs) = ck.restore((params, state))
+    assert step == 4
+    for got, w in zip(leaves(rp, rs), want, strict=True):
+        assert got.device.type == "cuda" and got.dtype == w.dtype
+        assert torch.equal(_raw(got), _raw(w))
+
+
+@pytest.mark.parametrize("n", [1, 1024, 3000, 1 << 20])
+def test_grad_compression_on_the_card_matches_the_cpu(card, n):
+    """Payloads, scales and residuals on the card equal the CPU's bit for
+    bit: the scale divides by 127 as a true division there too."""
+    from repro_torch.distributed.grad_compress import compress_with_feedback
+
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn((n,), generator=gen, device=card) * 1e-3
+    if n > 1024:
+        x[:1024] = 0.0
+    r = torch.randn((n,), generator=gen, device=card) * 1e-6
+    got = compress_with_feedback(x.bfloat16(), r)
+    want = compress_with_feedback(x.bfloat16().cpu(), r.cpu())
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda"
+        assert torch.equal(_raw(g), _raw(w))

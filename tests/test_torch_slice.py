@@ -231,6 +231,8 @@ def test_core_imports_neither_torch_nor_jax_nor_reference():
     "repro_torch.models, repro_torch.models.model",
     "repro_torch.serving, repro_torch.serving.router, repro_torch.serving.engine",
     "repro_torch.launch.serve, repro_torch.kernels.ops",
+    "repro_torch.launch.train, repro_torch.launch.inputs, repro_torch.data, "
+    "repro_torch.checkpoint, repro_torch.distributed, repro_torch.distributed.actctx",
 ])
 def test_serving_path_imports_neither_jax_nor_reference(modules):
     code = (

@@ -191,7 +191,7 @@ def _one_step(arch, accum=1, remat=False, seed=5, **kw):
     return out, (model, tp, ref_model, jp, ref_opt, jb)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "mistral-nemo-12b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "mistral-nemo-12b", "internvl2-1b"])
 def test_train_step_matches_reference(arch):
     (tp2, ts, tm), (model, tp, ref_model, jp, ref_opt, jb) = _one_step(arch)
     jp2, js, jm = jax.jit(ref_steps.make_train_step(ref_model, ref_opt))(
