@@ -46,7 +46,8 @@ result lines are printed:
               launches once per layer and prefill.  Then the kernel path
               against the plain attention path: (a) full depth, bf16,
               last-position prefill logits; (b) full width, 4 layers, f32,
-              16 greedy tokens identical.
+              16 greedy tokens identical.  One more prefill of the served
+              shape is counted (``kernels/cost.py``, untimed) for phase 11.
 7. train    — (a) the selective scan (K4) against its plain PyTorch version
               on the card, on the reference's test shapes and the model's,
               in float32 (atol 2e-4); its time at the model's shape beside
@@ -58,7 +59,8 @@ result lines are printed:
               (one launch per layer) and through the plain time loop, the
               two losses within 1e-3 in bf16 and, on float32 parameters,
               within 1e-5; K4 against the time loop on the first layer's
-              own scan inputs; (c) three ``make_train_step`` steps
+              own scan inputs; one more eval through K4 counted for
+              phase 11; (c) three ``make_train_step`` steps
               (plain scan, remat, AdamW with warmup-cosine), losses and
               grad norms finite and positive and the parameters moved, with
               step time, tokens/s and peak device memory, then a fourth
@@ -108,7 +110,8 @@ result lines are printed:
               backend's, the final checkpoint restores bit for bit onto
               the card; step time, tokens/s, peak memory, one profiled
               step's idle share, the seconds ``save`` held the loop and
-              each write took.  (b) ``--preset 100m``: 8 straight steps
+              each write took; one more step counted for phase 11, with
+              ``torch.cuda.max_memory_allocated`` over it.  (b) ``--preset 100m``: 8 straight steps
               against 4 then ``--resume`` for 4 more, each leg its own
               process; the two step-8 checkpoints the same bytes.  (c)
               ``plan_epoch`` and ``prefetch_epoch`` of 16 384 shards of
@@ -118,6 +121,21 @@ result lines are printed:
               (a)'s gradient tree on the card against a CPU copy, bit for
               bit, and ``cross_pod_allreduce`` plain and compressed over a
               one-rank NCCL group against the host's sum.
+11. cost    — (a) ``python -m repro_torch.launch.dryrun`` for
+              internvl2-1b × train_4k, falcon-mamba-7b × prefill_32k and
+              moonshot-v1-16b-a3b × prefill_32k (``--mesh single``), one
+              process each, all started together: every record ``ok``.
+              (b) Each step counted in phases 6, 7 and 10 counted again on
+              ``meta`` with the same config and shapes: FLOPs and bytes
+              equal to the card's count exactly, and each kernel's region
+              counted once per layer.  (c) Beside each step's measured
+              time: the counted FLOPs and bytes, achieved TFLOP/s,
+              ``mfu`` (``model_flops_estimate`` over time × the H100
+              record's bf16 peak), the counted FLOPs' share of that peak,
+              the roofline bound over the time, and for the trainer step
+              the counted one-device live peak beside
+              ``torch.cuda.max_memory_allocated``; and the host time of a
+              kernel wrapper's region with no counter active.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -144,15 +162,18 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, vector float64 and
-# float32 and dense bf16 tensor-core rates; and the special-function units'
-# exponentials, 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0) on 132 SMs at the
-# 1.98 GHz boost clock.
-HBM_BYTES_S = 3.35e12
-F64_FLOP_S = 34e12
-F32_FLOP_S = 67e12
-BF16_FLOP_S = 989e12
+from repro_torch.launch.hlo_analysis import H100_SXM, chip_named  # noqa: E402
+
+# H100 SXM peaks from the port's chip record (NVIDIA data sheet): HBM3
+# bandwidth, vector float64 and float32 and dense bf16 tensor-core rates;
+# phase 1 checks that the card is the one the record names.  And the
+# special-function units' exponentials, 16 per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) on 132 SMs at the 1.98 GHz boost clock.
+HBM_BYTES_S = H100_SXM.hbm_bytes_s
+F64_FLOP_S = H100_SXM.peak_f64_flop_s
+F32_FLOP_S = H100_SXM.peak_f32_flop_s
+BF16_FLOP_S = H100_SXM.peak_bf16_flop_s
 SFU_EXP_S = 16 * 132 * 1.98e9
 SEED = 0
 REPORT = {}
@@ -169,6 +190,47 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# -- counted steps ---------------------------------------------------------------
+
+#: The steps phases 6, 7 and 10 count once on the card, untimed, under
+#: ``kernels/cost.py``'s counter: the card's count, the step's function and
+#: ``meta`` stand-ins of its arguments (phase 11 counts it again there), its
+#: config and shape (for ``model_flops_estimate``) and the phase's measured
+#: time of the same step.
+COUNTED = {}
+
+
+def _meta(tree):
+    """The same tree with every tensor an empty one on ``meta``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree, device="meta")
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_meta(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_meta(v) for v in tree)
+    return tree
+
+
+def _count_step(name, fn, args, cfg, shape, seconds, **extra):
+    """Count ``fn(*args)`` once on the card, its arguments live, and keep
+    what phase 11 needs; → the card's count."""
+    import torch
+
+    from repro_torch.kernels import cost
+
+    torch.cuda.synchronize()
+    with cost.CostCounter(*args) as c:
+        fn(*args)
+    torch.cuda.synchronize()
+    COUNTED[name] = dict(fn=fn, meta_args=_meta(args), cfg=cfg, shape=shape,
+                         seconds=seconds, card=c.result(), card_by_op=c.by_op, **extra)
+    return c.result()
 
 
 # -- phase 1 -------------------------------------------------------------------
@@ -188,6 +250,10 @@ def phase_device():
     smi = nvidia_smi()
     if cap != (9, 0):
         raise SystemExit(f"{name} has capability {cap}, not (9, 0)")
+    try:  # no share of a peak is computed against another card's record
+        chip_named(name)
+    except KeyError as exc:
+        raise SystemExit(f"{name}: {exc}") from None
     t0 = time.perf_counter()
     _build.build()
     info = _build.build_info
@@ -930,7 +996,9 @@ def phase_serve():
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention, flash_attention, ts_plan, ts_plan_device
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.serve import drive, make_requests
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import count_params
     from repro_torch.models.model import Model
     from repro_torch.serving import BassRouter, ServeEngine
@@ -984,8 +1052,15 @@ def phase_serve():
         raise AssertionError(f"K1 launched {k1['launches']} times for "
                              f"{planner_calls} planning scans")
 
-    # (a) full depth, bf16: kernel path and plain path against float32.
+    # One more prefill of the served shape, counted (phase 11 holds the
+    # count against meta and sets it beside the prefill p50).
     prompt = reqs[0].prompt
+    _count_step("serve_prefill", make_prefill_step(model, SERVE["s_max"]),
+                (params, {"tokens": torch.as_tensor(prompt[None, :], device=cuda).long()}),
+                cfg, ShapeSpec("serve_prefill", "prefill", SERVE["prompt_len"], 1),
+                run["prefill_p50_ms"] * 1e-3, kernel_regions={"flash_attention": cfg.n_layers})
+
+    # (a) full depth, bf16: kernel path and plain path against float32.
     lp = _prefill_logits(model, params, prompt, SERVE["s_max"], cuda)
     lx = _prefill_logits(Model(cfg.with_(attn_impl="xla")), params, prompt,
                          SERVE["s_max"], cuda)
@@ -1133,6 +1208,7 @@ def phase_train():
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import decode_attention, flash_attention, mamba_scan
     from repro_torch.launch.steps import make_eval_step, make_train_step
     from repro_torch.models import count_params
@@ -1173,6 +1249,9 @@ def phase_train():
                    tolerance=EVAL_TOL, seconds_kernel=eval_k_s, seconds_plain=eval_x_s,
                    launches=launches, layer0_scan=_layer0_scan(cfg, params, batch))
     _, check_b["profile_kernel"] = _profiled(lambda: make_eval_step(Model(cfg))(params, batch))
+    _count_step("eval_k4", make_eval_step(Model(cfg)), (params, batch), cfg,
+                ShapeSpec("eval_k4", "prefill", TRAIN["seq"], TRAIN["batch"]),
+                check_b["profile_kernel"]["wall_s"], kernel_regions={"mamba_scan": cfg.n_layers})
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
     params32 = Model(cfg32).init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
     l32 = {impl: float(make_eval_step(Model(cfg32.with_(ssm_impl=impl)))(params32, batch)["loss"])
@@ -2095,6 +2174,7 @@ def _phase10_trainer(dev):
     import torch
 
     from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.convert import canon_fetches
     from repro_torch.kernels import ts_plan
     from repro_torch.launch import train
@@ -2147,7 +2227,15 @@ def _phase10_trainer(dev):
     sizes = {"/".join(path): t.numel() for path, t in flatten(init)}
     moved_all = sum(moved[k] * sizes[k] for k in moved) / sum(sizes.values())
     del init
-    _, profile = _profiled(lambda: res["train_step"](params, opt_state, res["batch"]))
+    profiled_out, profile = _profiled(lambda: res["train_step"](params, opt_state, res["batch"]))
+    del profiled_out  # its new parameters and moments, so the next step's peak is its own
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _count_step("trainer_step", res["train_step"], (params, opt_state, res["batch"]), cfg,
+                ShapeSpec("trainer", "train", spec["seq"], spec["batch"]),
+                float(np.median(res["step_s"])), kernel_regions={}, allocated_before=allocated)
+    COUNTED["trainer_step"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     grads = _grads(Model(cfg), params, res["batch"])
 
     losses = [v for _, v in res["losses"]]
@@ -2397,6 +2485,111 @@ def phase_trainer():
     return parts
 
 
+# -- phase 11 ------------------------------------------------------------------
+
+# (a) the dry run's CLI, one process per cell, all started together: the
+# trainer's cell, the mamba time scan at full size (by formula) and the MoE
+# dispatch at 32k.
+DRYRUN_CELLS = [("internvl2-1b", "train_4k"), ("falcon-mamba-7b", "prefill_32k"),
+                ("moonshot-v1-16b-a3b", "prefill_32k")]
+
+
+def _region_noop_ns(n=200_000):
+    """Host nanoseconds a region costs per call with no counter active:
+    ``cost.region`` given its numbers, and K2's wrapper's
+    ``cost.formula_region`` (its formula left unevaluated)."""
+    import torch
+
+    from repro_torch.kernels import cost, ops
+
+    assert not cost.active()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with cost.region("flash_attention", 1, 2):
+            pass
+    bare = (time.perf_counter() - t0) / n * 1e9
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with cost.formula_region("flash_attention", ops.attention_cost,
+                                 1, 32, 8, 512, 512, 128, torch.bfloat16, True):
+            pass
+    wrapper = (time.perf_counter() - t0) / n * 1e9
+    return dict(region_ns=bare, formula_region_ns=wrapper)
+
+
+def phase_cost():
+    """Phase 11: the dry run's records for three cells, and each counted
+    step of phases 6, 7 and 10 counted again on ``meta`` (the same FLOPs
+    and bytes, exactly), beside its measured time against the card's
+    peaks."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch.hlo_analysis import model_flops_estimate
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "dryrun_torch")
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    procs = {f"{a}__{s}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
+         "--mesh", "single", "--out", out_dir, "--force"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for a, s in DRYRUN_CELLS}
+
+    steps, bad = {}, []
+    for name, rec in COUNTED.items():
+        with cost.CostCounter(*rec["meta_args"]) as c:
+            rec["fn"](*rec["meta_args"])
+        meta, card, secs = c.result(), rec["card"], rec["seconds"]
+        flops, nbytes = card["flops"], card["bytes"]
+        mf = model_flops_estimate(rec["cfg"], rec["shape"])
+        bound = {"operations": flops / BF16_FLOP_S, "bytes": nbytes / HBM_BYTES_S}
+        regions = {k: v["calls"] for k, v in card["regions"].items()}
+        steps[name] = dict(
+            shape=dict(kind=rec["shape"].kind, seq=rec["shape"].seq_len,
+                       batch=rec["shape"].global_batch, layers=rec["cfg"].n_layers),
+            flops=flops, bytes=nbytes, transcendentals=card["transcendentals"],
+            meta_flops=meta["flops"], meta_bytes=meta["bytes"],
+            seconds=secs, achieved_tflop_s=flops / secs / 1e12, model_flops=mf,
+            mfu=mf / (secs * BF16_FLOP_S), flop_share_of_peak=flops / (secs * BF16_FLOP_S),
+            roofline_bound_s=max(bound.values()), bound_by=max(bound, key=bound.get),
+            bound_over_time=max(bound.values()) / secs, regions=regions,
+            uncounted=card["uncounted"], ops=card["ops"],
+            live_peak_bytes_meta=meta["live_peak_bytes"],
+            live_peak_bytes_card=card["live_peak_bytes"],
+            argument_bytes=card["argument_bytes"],
+            **{k: rec[k] for k in ("allocated_before", "max_memory_allocated") if k in rec})
+        if "max_memory_allocated" in rec:  # the step's own peak: its arguments and what it made
+            steps[name]["measured_step_peak_bytes"] = (
+                rec["max_memory_allocated"] - rec["allocated_before"] + card["argument_bytes"])
+        if (flops, nbytes) != (meta["flops"], meta["bytes"]):
+            by_op = rec["card_by_op"]
+            steps[name]["differs_by_op"] = {
+                k: (by_op.get(k), c.by_op.get(k)) for k in sorted(set(by_op) | set(c.by_op))
+                if by_op.get(k) != c.by_op.get(k)}
+            bad.append(f"{name}: card {flops} FLOPs, {nbytes} B; meta {meta['flops']}, "
+                       f"{meta['bytes']}")
+        if regions != rec["kernel_regions"] or meta["regions"] != card["regions"]:
+            bad.append(f"{name}: kernel regions {regions}, expected {rec['kernel_regions']}")
+    noop = _region_noop_ns()
+
+    records = {}
+    for cell, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        path = os.path.join(out_dir, f"{cell}__pod256.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {"ok": False}
+        records[cell] = dict(ok=rec["ok"] and proc.returncode == 0,
+                             returncode=proc.returncode, tail=stdout.strip()[-200:],
+                             **{k: rec.get(k) for k in ("accounting", "roofline", "memory",
+                                                        "error")})
+        if not records[cell]["ok"]:
+            bad.append(f"dryrun {cell}: {rec.get('error')} {stderr[-500:]}")
+    log("cost", seconds=time.perf_counter() - t0, steps=steps, dryrun=records,
+        region_noop=noop, chip=H100_SXM.name, peak_bf16_flop_s=BF16_FLOP_S,
+        hbm_bytes_s=HBM_BYTES_S)
+    if bad:
+        raise AssertionError(f"phase 11: {bad}")
+    return steps
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -2467,6 +2660,7 @@ def main() -> int:
     sched = phase_scheduler()
     models = phase_models()
     trainer = phase_trainer()
+    phase_cost()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",

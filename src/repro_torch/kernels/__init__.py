@@ -11,7 +11,7 @@ torch too.
 import importlib
 
 __all__ = [
-    "decode_attention", "flash_attention", "mamba_scan", "ops", "ref", "ts_plan",
+    "cost", "decode_attention", "flash_attention", "mamba_scan", "ops", "ref", "ts_plan",
     "ts_plan_device",
 ]
 

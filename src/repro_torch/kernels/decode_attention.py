@@ -9,7 +9,8 @@ to the kernel as an argument, never a device tensor read back.  Given CUDA
 tensors the wrapper checks them, launches ``csrc/decode_attention.cu`` on
 the current stream, raises on a CUDA error, and counts the launch in
 ``stats["launches"]``; given CPU tensors it runs the plain version,
-:func:`ref.decode_ref`.  The shape contract is the reference's:
+:func:`ref.decode_ref`; given ``meta`` tensors, an output of the right
+shape.  The shape contract is the reference's:
 ``S % min(block_k, S) == 0``.  The caches are read by 16-byte vector
 loads, so their base addresses and strides must be 16-byte aligned.
 
@@ -72,8 +73,9 @@ def flash_decode_bhsd(
     bk = min(block_k, sk)
     if bk <= 0 or sk % bk:
         raise ValueError(f"S={sk} is not a multiple of its block {bk}")
-    if q.device.type == "cpu":
-        return ref.decode_ref(q, k, v, pos)
+    if q.device.type in ("cpu", "meta"):  # the output takes q's layout, as the kernel's
+        out = torch.empty_like(q)
+        return out if q.device.type == "meta" else out.copy_(ref.decode_ref(q, k, v, pos))
     if torch.is_tensor(pos) and pos.device.type != "cpu":
         raise ValueError("pos must be a host integer, not a device tensor")
     pos = int(pos)

@@ -7,7 +7,8 @@ tensors it checks them, launches ``csrc/flash_attention.cu`` on the current
 stream, raises on a CUDA error, and counts the launch in
 ``stats["launches"]``.  Given CPU tensors it runs the plain version,
 :func:`ref.attention_ref`; nothing else selects it, and no failure on the
-card falls back to it.
+card falls back to it.  Given ``meta`` tensors it returns an output of
+the right shape and runs nothing (``kernels/cost.py`` counts a step there).
 
 The wrapper keeps the reference's shape contract — ``nq % nkv == 0`` and
 ``S % min(block, S) == 0`` for both block sizes — so the same calls succeed
@@ -51,7 +52,7 @@ def check_cuda_inputs(name: str, q: torch.Tensor, **others) -> None:
     take, with a contiguous head dim the kernels take."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {q.device}: only CPU (plain "
-                         "version) and CUDA (kernel) are supported")
+                         "version), meta (shapes only) and CUDA (kernel) are supported")
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} is not float32 or bfloat16")
     if q.shape[-1] not in HEAD_DIMS:
@@ -100,8 +101,10 @@ def flash_attention_bhsd(
     bq, bk = min(block_q, sq), min(block_k, sk)
     if bq <= 0 or bk <= 0 or sq % bq or sk % bk:
         raise ValueError(f"S={sq}/{sk} is not a multiple of its block {bq}/{bk}")
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal)
+    if q.device.type in ("cpu", "meta"):  # the output takes q's layout, as the kernel's
+        out = torch.empty_like(q)
+        return out if q.device.type == "meta" else out.copy_(
+            ref.attention_ref(q, k, v, causal=causal))
     check_cuda_inputs("flash_attention", q, k=k, v=v)
     if tuple(k.shape) != (b, nkv, sk, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")

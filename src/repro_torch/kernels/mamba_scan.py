@@ -6,7 +6,8 @@ kernel): :func:`mamba_scan_blocked` takes x, dt ``[B, S, d_in]``, a
 d_in]`` float32.  Given CUDA tensors it checks them, launches
 ``csrc/mamba_scan.cu`` on the current stream, raises on a CUDA error, and
 counts the launch in ``stats["launches"]``; given CPU tensors it runs the
-plain version, :func:`ref.mamba_scan_ref`.  Nothing else selects the
+plain version, :func:`ref.mamba_scan_ref`; given ``meta`` tensors, y's
+shape without running the loop.  Nothing else selects the
 plain version, and no failure on the card falls back to it.
 
 The kernel's arithmetic differs from the plain version's only in its
@@ -55,8 +56,8 @@ def _check_cuda_inputs(x, dt, a, b_mat, c_mat) -> None:
     for key, t in named.items():
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"mamba_scan: {key} is on {t.device}, x on {x.device}: "
-                             "only all-CPU (plain version) or all on one CUDA "
-                             "device (kernel) is supported")
+                             "only all-CPU (plain version), all meta (shapes only) "
+                             "or all on one CUDA device (kernel) is supported")
         if t.dtype != torch.float32:
             raise TypeError(f"mamba_scan: {key} is {t.dtype}; the kernel takes float32")
         if not t.is_contiguous():
@@ -91,6 +92,8 @@ def mamba_scan_blocked(
     tensors = (x, dt, a, b_mat, c_mat)
     if all(t.device.type == "cpu" for t in tensors):
         return ref.mamba_scan_ref(*tensors)
+    if all(t.device.type == "meta" for t in tensors):
+        return torch.empty_like(x)
     _check_cuda_inputs(*tensors)
     y = torch.empty_like(x)
     err = _build.library("mamba_scan").mamba_scan_fwd(

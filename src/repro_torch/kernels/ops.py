@@ -8,14 +8,49 @@ does and runs it as an autograd function, so that a train step through it
 fails loudly instead of losing the gradient below it.  CUDA tensors go to
 the kernels and CPU tensors to their plain versions; the choice is made by
 the tensors' device alone.
+
+Each wrapper counts its work by formula in the active
+:class:`cost.CostCounter` (``cost.formula_region``: a null context, the
+formula not evaluated, when no counter is active), on every device: the
+kernel on the card, the plain version on the CPU, and on ``meta``
+tensors, where it returns an output of the right shape and runs nothing.  The attention formulas are
+what the counter gives for the plain versions (``ref.attention_ref``,
+``ref.decode_ref``) on contiguous ``[B, H, S, hd]`` tensors of the same
+shapes; the scan's is ``hlo_analysis.ssm_scan_addendum``'s per layer.
 """
 from __future__ import annotations
 
 import torch
 
+from . import cost
 from .decode_attention import flash_decode_bhsd
 from .flash_attention import flash_attention_bhsd
 from .mamba_scan import mamba_scan_blocked
+
+
+def attention_cost(b: int, nq: int, nkv: int, sq: int, sk: int, hd: int,
+                   dtype: torch.dtype, causal: bool, decode: bool = False):
+    """→ (FLOPs, bytes) that :class:`cost.CostCounter` counts for
+    ``ref.attention_ref`` (``decode``: ``ref.decode_ref`` at an integer
+    ``pos``) on contiguous tensors of these shapes: the casts to float32
+    and back, two batched products, the scale, the mask and its
+    ``where``, and the softmax."""
+    q_el, kv_el, s_el = b * nq * sq * hd, b * nkv * sk * hd, b * nq * sq * sk
+    e = dtype.itemsize
+    cast = dtype != torch.float32
+    flops = 4 * s_el * hd + s_el + 4 * s_el                   # products, scale, softmax
+    nbytes = 2 * (4 * q_el + 4 * kv_el + 4 * s_el) + 8 * s_el + 8 * s_el
+    if cast:                                                   # q, k, v up; out down
+        flops += 2 * q_el + 2 * kv_el
+        nbytes += (e + 4) * (2 * q_el + 2 * kv_el)
+    if causal or decode:                                       # mask, scalar, where
+        mask = sk if decode else sq * sk
+        flops += mask + s_el
+        nbytes += 4 + mask + 8 * s_el + 4
+        nbytes += 16 * sk + mask if decode else 16 * (sk + sq) + mask   # arange, le
+    else:
+        nbytes += 8 * sk                                       # the key positions
+    return flops, nbytes
 
 
 def flash_attention(
@@ -26,11 +61,14 @@ def flash_attention(
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
-    out = flash_attention_bhsd(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, block_q=block_q, block_k=block_k,
-    )
-    return out.transpose(1, 2)
+    b, sq, nq, hd = q.shape
+    with cost.formula_region("flash_attention", attention_cost,
+                             b, nq, k.shape[2], sq, k.shape[1], hd, q.dtype, causal):
+        out = flash_attention_bhsd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, block_q=block_q, block_k=block_k,
+        )
+        return out.transpose(1, 2)
 
 
 def flash_decode(
@@ -40,11 +78,14 @@ def flash_decode(
     pos,                        # last valid position (host integer)
     block_k: int = 512,
 ) -> torch.Tensor:
-    out = flash_decode_bhsd(
-        q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-        pos, block_k=block_k,
-    )
-    return out.transpose(1, 2)
+    b, _, nq, hd = q.shape
+    with cost.formula_region("flash_decode", attention_cost,
+                             b, nq, k_cache.shape[2], 1, k_cache.shape[1], hd, q.dtype, False, True):
+        out = flash_decode_bhsd(
+            q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+            pos, block_k=block_k,
+        )
+        return out.transpose(1, 2)
 
 
 class _MambaScan(torch.autograd.Function):
@@ -82,6 +123,16 @@ def mamba_scan(
     ck = chunk
     while s % ck:
         ck //= 2
-    return _MambaScan.apply(
-        *(t.contiguous() for t in (x, dt, a, b_mat, c_mat)), bd, ck
-    )
+    with cost.formula_region("mamba_scan", scan_cost, x.shape[0], s, d_in, a.shape[-1]):
+        return _MambaScan.apply(
+            *(t.contiguous() for t in (x, dt, a, b_mat, c_mat)), bd, ck
+        )
+
+
+def scan_cost(b: int, s: int, d_in: int, n: int, backward: bool = False):
+    """→ (FLOPs, bytes) of the selective scan over ``b × s`` steps of
+    ``d_in`` channels and ``n`` states: 6 FLOPs and 16 bytes a step,
+    channel and state forward (``ssm_scan_addendum``'s share of one
+    layer), twice that for the backward."""
+    el = b * s * d_in * n * (2 if backward else 1)
+    return 6 * el, 16 * el

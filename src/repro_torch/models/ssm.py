@@ -15,6 +15,13 @@ differentiable, and it returns the final state for prefill.
 through the hand-written scan kernel (K4, ``kernels/ops.py``) instead, as
 the reference sends it through its Pallas kernel; that path has no
 gradient in either package.
+
+Under a :class:`kernels.cost.CostCounter` the time loop counts by formula
+(``kernels.ops.scan_cost``, ``ssm_scan_addendum``'s per-layer share), its
+forward and its backward: on ``meta`` tensors :class:`_MetaScan` stands in
+for it without iterating, its graph kept to every input; on the CPU and
+the card the loop runs as always, and two identity nodes around it hold
+op counting off while autograd runs its backward.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels import cost
+from ..kernels.ops import scan_cost
 from .params import P, dtype_of
 
 #: Time steps whose ``exp(Δ A)`` and ``(Δ x) B`` the plain scan computes at
@@ -75,9 +84,81 @@ def _ssm_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return xc, dt, b_mat, c_mat
 
 
+class _MetaScan(torch.autograd.Function):
+    """The time loop on ``meta`` tensors: y and the final h with their
+    shapes, counted by formula, forward and backward, without iterating.
+    An autograd function, so that a train step keeps the graph below it
+    (a stand-in with no ``grad_fn`` would cut every layer underneath)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, h):
+        ctx.shapes = [t.shape for t in (x, dt, a, b_mat, c_mat, h)]
+        ctx.dims = (x.shape[0], x.shape[1], x.shape[2], a.shape[-1])
+        with cost.region("ssm_scan", *scan_cost(*ctx.dims)):
+            return torch.empty_like(x), torch.empty_like(h)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        with cost.region("ssm_scan_backward", *scan_cost(*ctx.dims, backward=True)):
+            return tuple(grad_y.new_empty(shape) if need else None
+                         for shape, need in zip(ctx.shapes, ctx.needs_input_grad))
+
+
+class _Resume(torch.autograd.Function):
+    """Identity on the loop's inputs; its backward, the last of the loop's,
+    turns op counting back on."""
+
+    @staticmethod
+    def forward(ctx, gate, *inputs):
+        ctx.gate = gate
+        return tuple(t.view_as(t) for t in inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counter, held = ctx.gate
+        if held[0]:
+            held[0] = False
+            counter.release()
+        return (None,) + grads
+
+
+class _Hold(torch.autograd.Function):
+    """Identity on the loop's outputs; its backward, the first of the
+    loop's, counts the backward by formula and holds op counting off."""
+
+    @staticmethod
+    def forward(ctx, gate, dims, *outputs):
+        ctx.gate, ctx.dims = gate, dims
+        return tuple(t.view_as(t) for t in outputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counter, held = ctx.gate
+        counter.add_region("ssm_scan_backward", *scan_cost(*ctx.dims, backward=True))
+        held[0] = True
+        counter.hold()
+        return (None, None) + grads
+
+
 def _scan_time(x, dt, a, b_mat, c_mat, h):
     """The plain scan: x, dt [B,S,d_in], a [d_in,N], B, C [B,S,N], h
     [B,d_in,N] (all f32) → (y [B,S,d_in], final h)."""
+    if x.device.type == "meta":
+        return _MetaScan.apply(x, dt, a, b_mat, c_mat, h)
+    dims = (x.shape[0], x.shape[1], x.shape[2], a.shape[-1])
+    gate = None
+    if (cost.active() and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, dt, a, b_mat, c_mat, h))):
+        gate = (cost.current(), [False])
+        x, dt, a, b_mat, c_mat, h = _Resume.apply(gate, x, dt, a, b_mat, c_mat, h)
+    with cost.formula_region("ssm_scan", scan_cost, *dims):
+        y, h = _scan_loop(x, dt, a, b_mat, c_mat, h)
+    if gate is not None:
+        y, h = _Hold.apply(gate, dims, y, h)
+    return y, h
+
+
+def _scan_loop(x, dt, a, b_mat, c_mat, h):
     ys = []
     for t0 in range(0, x.shape[1], SCAN_CHUNK):
         sl = slice(t0, t0 + SCAN_CHUNK)

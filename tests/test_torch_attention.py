@@ -177,17 +177,38 @@ def test_flash_decode_shape_contract_raises_on_both():
         ops.flash_decode(tq, tk, tk, 5)
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor on a device that is neither the CPU, ``meta`` nor a card
+    (``xpu``, with no data: any op on it raises)."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor with no data")
+
+
 @pytest.mark.parametrize("fn", ["attention", "decode"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(fn):
     """A tensor neither on the CPU nor on a card is refused, not sent to
-    the plain version."""
-    q = torch.empty((1, 4, 1, 64), device="meta")
-    k = torch.empty((1, 2, 128, 64), device="meta")
-    with pytest.raises(ValueError, match="only CPU"):
-        if fn == "attention":
-            flash_attention.flash_attention_bhsd(q.expand(1, 4, 128, 64), k, k)
+    the plain version; ``meta`` tensors (the cost counter's) get an output
+    of the right shape and run nothing."""
+    sq = 128 if fn == "attention" else 1
+    for dev in ("other", "meta"):
+        mk = _OtherDevice if dev == "other" else (  # noqa: E731
+            lambda shape: torch.empty(shape, device="meta"))
+        q, k = mk((1, 4, sq, 64)), mk((1, 2, 128, 64))
+        call = (lambda: flash_attention.flash_attention_bhsd(q, k, k)) if fn == "attention" \
+            else (lambda: decode_attention.flash_decode_bhsd(q, k, k, 3))
+        if dev == "other":
+            with pytest.raises(ValueError, match="only CPU"):
+                call()
         else:
-            decode_attention.flash_decode_bhsd(q, k, k, 3)
+            out = call()
+            assert out.device.type == "meta" and out.shape == q.shape
 
 
 def test_mamba_scan_computes_the_reference_function():

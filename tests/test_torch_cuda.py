@@ -836,3 +836,29 @@ def test_grad_compression_on_the_card_matches_the_cpu(card, n):
     for g, w in zip(got, want, strict=True):
         assert g.device.type == "cuda"
         assert torch.equal(_raw(g), _raw(w))
+
+
+def test_counted_k2_prefill_on_the_card_equals_its_meta_count(card):
+    """A prefill through K2 counts on the card what it counts on ``meta``:
+    the kernel region's formula stands for the kernel the dispatch mode
+    cannot see, so FLOPs and bytes are functions of the shapes alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cost, flash_attention
+    from repro_torch.models.model import Model
+
+    cfg = get_config("mistral-nemo-12b", smoke=True).with_(
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=128, attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 256))
+    counts = {}
+    for dev, p in ((card, params), (torch.device("meta"), model.abstract())):
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        before = flash_attention.stats["launches"]
+        with cost.CostCounter(p, batch) as c, torch.no_grad():
+            model.prefill(p, batch, 512)
+        counts[dev.type] = (c.flops, c.bytes, c.regions, c.uncounted)
+        if dev.type == "cuda":
+            assert flash_attention.stats["launches"] - before == cfg.n_layers
+    assert counts["cuda"] == counts["meta"]
+    assert counts["cuda"][2]["flash_attention"][0] == cfg.n_layers

@@ -102,14 +102,32 @@ def test_mamba_scan_has_no_backward():
         y.sum().backward()
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor on a device that is neither the CPU, ``meta`` nor a card
+    (``xpu``, with no data: any op on it raises)."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor with no data")
+
+
 def test_mamba_scan_refuses_devices_other_than_cpu_and_cuda():
-    """Tensors not all on the CPU go to the kernel's checks, which take
-    only CUDA tensors: a meta tensor, or a mix, is refused."""
+    """Tensors not all on the CPU (nor all on ``meta``, the cost
+    counter's, which get y's shape and run nothing) go to the kernel's
+    checks, which take only CUDA tensors: another device, or a mix, is
+    refused."""
     tensors = [torch.from_numpy(v) for v in _scan_inputs((1, 16, 8, 4))]
     with pytest.raises(ValueError, match="only all-CPU"):
-        mamba_scan.mamba_scan_blocked(*(t.to("meta") for t in tensors))
+        mamba_scan.mamba_scan_blocked(*(_OtherDevice(t.shape) for t in tensors))
     with pytest.raises(ValueError, match="only all-CPU"):
         mamba_scan.mamba_scan_blocked(*tensors[:2], tensors[2].to("meta"), *tensors[3:])
+    y = mamba_scan.mamba_scan_blocked(*(t.to("meta") for t in tensors))
+    assert y.device.type == "meta" and y.shape == tensors[0].shape
 
 
 # -- the mamba block ------------------------------------------------------------------
