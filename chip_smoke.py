@@ -137,6 +137,25 @@ result lines are printed:
               ``torch.cuda.max_memory_allocated``; and the host time of a
               kernel wrapper's region with no counter active.
 
+12. expert  — the expert-parallel MoE dispatch (``moe_impl="a2a"``) on 4
+              ranks, one process each, all on the one card, as a (1, 4)
+              rank mesh (sequence over ``model``), their collectives on
+              gloo staged through host memory after one probe of NCCL
+              (recorded): (a) moonshot's MoE block at full width (64
+              experts, 16 a rank), B 1, S 512, float32 and bf16 at
+              capacity factor 8.0 against the one-rank gather (float32
+              within 1e-4, bf16 stated), bf16 at 1.25 with each rank's
+              drop rate; (b) moonshot-v1-16b-a3b at full width through a
+              ``ServeEngine`` on every rank (2 requests of 512 tokens, 4
+              new), at the largest depth whose reckoned bytes fit 70 GB
+              (all 48 layers), the greedy tokens equal on every rank and
+              K2 once per layer and prefill on each; at 2 layers in
+              float32 every rank's prefill logits within 1e-4 of the
+              one-rank gather's; (c) phi3.5-moe-42b-a6.6b at full width
+              (16 experts, 4 a rank) served the same way at the largest
+              depth that fits; (d) every rank's counted collectives equal
+              to ``launch/expert.py::a2a_collectives`` op for op.
+
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
 full report goes to ``build/chip_smoke.json``.
@@ -2590,6 +2609,267 @@ def phase_cost():
     return steps
 
 
+# -- phase 12 ------------------------------------------------------------------
+
+# The expert-parallel MoE dispatch (``moe_impl="a2a"``) on 4 ranks, one
+# process each (``distributed/ranks.py``), all on ``cuda:0``, as a (1, 4)
+# rank mesh with the sequence over ``model``: 16 of moonshot-v1-16b-a3b's 64
+# experts a rank, 4 of phi3.5-moe-42b-a6.6b's 16.  NCCL is probed once (one
+# all-reduce over the 4 ranks); everything else runs on gloo, which stages
+# each CUDA payload through host memory (``distributed/collectives.py``).
+# Depth: the largest whose parameters (each rank a whole copy of the
+# non-expert ones and its quarter of the experts), caches and a context
+# per rank fit under EXPERT_BUDGET bytes and the card's free memory.
+EXPERT_WORLD, EXPERT_MESH = 4, (1, 4)
+EXPERT_RULES = {"batch": ("data",), "seq": "model"}
+EXPERT_BUDGET = 70 * 2**30        # of the card's 80 GiB
+EXPERT_RANK_OVERHEAD = 0.8e9     # a rank's CUDA context and activations
+EXPERT_SERVE = dict(slots=1, s_max=640, requests=2, prompt_len=512, max_new=4)
+EXPERT_LIMIT = 600               # seconds for one multi-rank run
+# a2a against the one-rank gather, float32: the same products over other
+# buffer shapes, and the balance sums over the ranks in another order.
+EXPERT_TOL = 1e-4
+
+
+def _card_released(free_before, limit_s=60.0):
+    """Wait until the card's free memory is within 1 GiB of
+    ``free_before`` (the ranks of the last run have exited, and their
+    memory can take a moment to come back) → seconds waited."""
+    import torch
+
+    t0 = time.perf_counter()
+    while torch.cuda.mem_get_info()[0] < free_before - 2**30:
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"the card's memory was not released in {limit_s} s: "
+                                 f"{torch.cuda.mem_get_info()[0]} B free, {free_before} before")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def _expert_payload(**kw):
+    return dict(device="cuda:0", mesh=EXPERT_MESH, rules=EXPERT_RULES, seed=SEED, **kw)
+
+
+def _rank_mesh_bytes(cfg, serve):
+    """Bytes on the card for ``cfg`` on the rank mesh: each rank a whole
+    copy of the parameters outside the expert stack, its share of the
+    expert stack, the engine's cache and one more (a prefill's), the
+    largest float32 slice the initialisation draws at a time, and its
+    overhead."""
+    import math
+
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import _SLICE_ELEMS, dtype_of, flatten
+
+    size = dtype_of(cfg.param_dtype).itemsize
+    experts = other = slice_bytes = 0
+    for path, p in flatten(Model(cfg).defs()):
+        n = math.prod(p.shape) * size
+        cols = math.prod(p.shape[1:])
+        slice_bytes = max(slice_bytes, 4 * cols * max(1, _SLICE_ELEMS // max(cols, 1)))
+        if "moe" in path[:-1] and path[-1] != "router":
+            experts += n
+        else:
+            other += n
+    cache = (_n_attn(cfg) * 2 * serve["s_max"] * cfg.n_kv_heads * cfg.resolved_head_dim
+             * dtype_of(cfg.compute_dtype).itemsize)
+    per_rank = other + cache * (serve["slots"] + 1) + slice_bytes + EXPERT_RANK_OVERHEAD
+    return experts + EXPERT_WORLD * per_rank
+
+
+def _expert_depth(arch, budget):
+    """(layers, bytes): the largest depth of ``arch`` whose reckoning fits."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    for n in range(cfg.n_layers, 0, -1):
+        need = _rank_mesh_bytes(cfg.with_(n_layers=n), EXPERT_SERVE)
+        if need <= budget:
+            return n, need
+    raise AssertionError(f"{arch}: not one layer fits in {budget} B")
+
+
+def _expert_probe_nccl():
+    """One all-reduce over 4 NCCL ranks on one card → what NCCL said."""
+    from repro_torch.distributed.ranks import RankFailure, run_ranks
+
+    t0 = time.perf_counter()
+    try:
+        out = run_ranks("repro_torch.launch.expert:probe", EXPERT_WORLD, {"device": "cuda:0"},
+                        backend="nccl", timeout_s=120)
+        said = dict(accepted=True, sums=out)
+    except RankFailure as exc:
+        lines = [ln for ln in str(exc).splitlines()
+                 if "NCCL" in ln or "Duplicate" in ln or "Error" in ln]
+        said = dict(accepted=False, said=lines[:6] or [str(exc)[-600:]])
+    said["seconds"] = time.perf_counter() - t0
+    return said
+
+
+def _same_ranks(results, key):
+    return all(r[key] == results[0][key] for r in results)
+
+
+def _check_ops(name, results, want):
+    """Every rank's counted ops equal to the formula → (count, wire bytes by kind)."""
+    from repro_torch.launch.expert import report_of
+
+    for r in results:
+        for key, ops in want.items():
+            if r[key] != ops:
+                raise AssertionError(f"{name} rank {r['coords']}: {key} {r[key]} against "
+                                     f"the formula {ops}")
+    return {key: dict(count=report_of(ops).count(), wire_bytes=report_of(ops).by_kind())
+            for key, ops in want.items()}
+
+
+def _expert_block():
+    """(a) moonshot's MoE block at full width, B 1, S 512, on the 4 ranks:
+    float32 and bf16 at capacity factor 8.0 against the one-rank gather
+    (rank 0), bf16 at 1.25 with each rank's drop rate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.expert import a2a_collectives
+
+    arch, shape = "moonshot-v1-16b-a3b", (1, 512)
+    cases = [dict(dtype="float32", cfg=dict(capacity_factor=8.0), gather=True),
+             dict(dtype="bfloat16", cfg=dict(capacity_factor=8.0), gather=True),
+             dict(dtype="bfloat16", cfg=dict(capacity_factor=1.25))]
+    t0 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.expert:block", EXPERT_WORLD,
+                    _expert_payload(arch=arch, x_shape=shape, reps=5, cases=cases),
+                    timeout_s=EXPERT_LIMIT)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for i, case in enumerate(cases):
+        ranks = [r[i] for r in res]
+        r0 = ranks[0]
+        cfg = get_config(arch).with_(**case["cfg"])
+        size = 4 if case["dtype"] == "float32" else 2
+        label = f"{case['dtype']}_cf{case['cfg']['capacity_factor']}"
+        counts = _check_ops(label, ranks, {"ops": a2a_collectives(
+            cfg, dict(zip(("data", "model"), EXPERT_MESH)), EXPERT_RULES, *shape, size, size)})
+        entry = dict(c_e=r0["c_e"], drops=[r["drops"] for r in ranks],
+                     finite=all(bool(torch.isfinite(r["y"]).all()) for r in ranks),
+                     ranks_identical=all(torch.equal(r["y"], r0["y"]) for r in ranks),
+                     aux=[r["aux"] for r in ranks], ms=[float(np.median(r["ms"])) for r in ranks],
+                     route=r0["route"], collectives=counts)
+        if case.get("gather"):
+            y, yg = r0["y"].float(), r0["y_gather"].float()
+            entry.update(max_abs_err=float((y - yg).abs().max()), max_abs_y=float(yg.abs().max()),
+                         aux_err=abs(r0["aux"] - r0["aux_gather"]),
+                         drops_gather=r0["drops_gather"])
+        out[label] = entry
+    f32, bf16 = out["float32_cf8.0"], out["bfloat16_cf8.0"]
+    f32["tolerance"] = EXPERT_TOL
+    out["seconds"] = seconds
+    if not all(e["finite"] and e["ranks_identical"] for k, e in out.items() if k != "seconds"):
+        raise AssertionError(f"(a) a rank's output is not finite or differs: {out}")
+    if not (f32["max_abs_err"] <= EXPERT_TOL and f32["aux_err"] <= EXPERT_TOL
+            and max(f32["drops"]) == 0 and f32["drops_gather"] == 0):
+        raise AssertionError(f"(a) float32 a2a against the one-rank gather: {f32}")
+    if max(bf16["drops"]) != 0 or bf16["drops_gather"] != 0:
+        raise AssertionError(f"(a) bf16 at capacity factor 8.0 dropped: {bf16}")
+    return out
+
+
+def _expert_serve(arch, n_layers, budget_bytes):
+    """(b), (c): ``arch`` at full width and ``n_layers`` through the serving
+    engine on the 4 ranks (bf16; the config's capacity factor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.expert import a2a_collectives
+
+    cfg = get_config(arch).with_(n_layers=n_layers, attn_impl="pallas", remat=False)
+    over = dict(n_layers=n_layers, attn_impl="pallas", remat=False)
+    t0 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.expert:serve", EXPERT_WORLD,
+                    _expert_payload(arch=arch, cfg=over, **EXPERT_SERVE), timeout_s=EXPERT_LIMIT,
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    seconds = time.perf_counter() - t0
+    r0 = res[0]
+    n_moe = sum(cfg.is_moe_layer(layer) for layer in range(n_layers))
+    mesh = dict(zip(("data", "model"), EXPERT_MESH))
+    per_layer = lambda b, s: a2a_collectives(cfg, mesh, EXPERT_RULES, b, s, 2, 2)  # noqa: E731
+    counts = _check_ops(arch, res, {"ops": per_layer(1, EXPERT_SERVE["prompt_len"]) * n_moe,
+                                    "tick_ops": per_layer(EXPERT_SERVE["slots"], 1) * n_moe})
+    prefills = EXPERT_SERVE["requests"]
+    out = dict(arch=arch, layers=n_layers, of_layers=get_config(arch).n_layers,
+               reckoned_bytes=budget_bytes, seconds=seconds, init_s=[r["init_s"] for r in res],
+               first_tokens=r0["first_tokens"], tokens=r0["tokens"],
+               ranks_identical=_same_ranks(res, "tokens"), done=all(r["done"] for r in res),
+               k2_launches=[r["k2_launches"] for r in res], attn_layers=_n_attn(cfg),
+               prefill_ms=[r["prefill_ms"] for r in res],
+               tick_ms_p50=[float(np.median(r["tick_ms"])) for r in res],
+               drop_rate_prefill=[float(np.mean(r["drops"])) for r in res],
+               drop_rate_prefill_by_layer_rank0=r0["drops"],
+               max_memory_allocated=[r["max_memory_allocated"] for r in res],
+               params_allocated=[r["params_allocated"] for r in res],
+               init_peak=[r["init_peak"] for r in res],
+               card_free_after_init=[r["card_free_after_init"] for r in res],
+               route=r0["route"], collectives=counts)
+    if not (out["done"] and out["ranks_identical"]):
+        raise AssertionError(f"{arch}: serve incomplete or ranks differ: {out}")
+    if any(k != _n_attn(cfg) * prefills for k in out["k2_launches"]):
+        raise AssertionError(f"{arch}: K2 launched {out['k2_launches']} times for {prefills} "
+                             f"prefills of {_n_attn(cfg)} attention layers")
+    return out
+
+
+def _expert_f32_logits(n_layers=2):
+    """(b) moonshot at full width, ``n_layers`` layers, float32, at a
+    capacity no rank can overflow (``ceil(E / k)``: ``c_e`` ≥ the local
+    tokens, and the gather's capacity ≥ all tokens): every rank's prefill
+    logits against the one-rank gather's (rank 0, the same seed)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+
+    arch = "moonshot-v1-16b-a3b"
+    cfg = get_config(arch)
+    over = dict(n_layers=n_layers, param_dtype="float32", compute_dtype="float32",
+                attn_impl="pallas", capacity_factor=float(math.ceil(cfg.n_experts / cfg.top_k)))
+    t0 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.expert:prefill", EXPERT_WORLD,
+                    _expert_payload(arch=arch, cfg=over, tokens_shape=(1, 512), gather=True),
+                    timeout_s=EXPERT_LIMIT)
+    lg = res[0]["logits_gather"]
+    out = dict(layers=n_layers, capacity_factor=over["capacity_factor"],
+               seconds=time.perf_counter() - t0,
+               max_abs_err=max(float((r["logits"] - lg).abs().max()) for r in res),
+               max_abs_logit=float(lg.abs().max()), drops=[max(r["drops"]) for r in res],
+               k2_launches=[r["k2_launches"] for r in res], tolerance=EXPERT_TOL)
+    if not (out["max_abs_err"] <= EXPERT_TOL and max(out["drops"]) == 0):
+        raise AssertionError(f"(b) float32 a2a prefill against the one-rank gather: {out}")
+    return out
+
+
+def phase_expert():
+    """Phase 12: the expert-parallel MoE dispatch on 4 ranks of one card."""
+    import torch
+
+    _free()
+    free, total = torch.cuda.mem_get_info()
+    budget = min(EXPERT_BUDGET, free - 2 * 2**30)
+    t0 = time.perf_counter()
+    out = dict(mesh=EXPERT_MESH, rules=EXPERT_RULES, free_bytes=free, total_bytes=total,
+               budget_bytes=budget, nccl=_expert_probe_nccl(), released_s=[])
+    out["released_s"].append(_card_released(free))
+    out["block"] = _expert_block()
+    out["released_s"].append(_card_released(free))
+    out["f32"] = _expert_f32_logits()
+    for key, arch in (("moe", "moonshot-v1-16b-a3b"), ("phi", "phi3.5-moe-42b-a6.6b")):
+        out["released_s"].append(_card_released(free))
+        layers, need = _expert_depth(arch, budget)
+        out[key] = _expert_serve(arch, layers, need)
+    out["phase_s"] = time.perf_counter() - t0
+    log("expert", **out)
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -2661,6 +2941,7 @@ def main() -> int:
     models = phase_models()
     trainer = phase_trainer()
     phase_cost()
+    expert = phase_expert()
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -2691,7 +2972,8 @@ def main() -> int:
         "ms_failure_shape_widest": fail_cuda["k1"]["widest"]["ms"],
         "bound_ms_failure_shape_widest": fail_cuda["k1"]["widest"]["bound_ms"],
     }, _attention_entry("flash_attention", attn["flash_attention"], serve["k2_launches"],
-                        **_k2_family_launches(models)),
+                        **_k2_family_launches(models),
+                        launches_a2a_serve_path=expert["moe"]["k2_launches"][0]),
         _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"]), {
         "name": "mamba_scan",
         "route": "cuda",

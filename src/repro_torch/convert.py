@@ -115,3 +115,26 @@ def params_from_jax(tree, device="cuda", dtype=None):
     else:
         t = torch.from_numpy(np.array(arr))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def shard_moe_params(params, mesh, coords):
+    """A rank's shards of global MoE parameters (the reference's numpy
+    leaves, as ``params_from_jax`` takes them, or tensors) for the
+    expert-parallel dispatch: each leaf of one block's dict (the keys of
+    ``models/moe.py::A2A_PARAM_SPECS``), or of every ``moe`` subtree of a
+    model tree, cut by those specs at ``coords`` (axis → index) of
+    ``mesh`` (its ``shape``); the other leaves whole.  Leaves are views."""
+    from .models.moe import A2A_PARAM_SPECS, shard_index
+
+    def walk(tree, block):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, k == "moe")
+            elif block and k in A2A_PARAM_SPECS:
+                out[k] = v[shard_index(k, v.shape, mesh.shape, coords)]
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, "router" in params)

@@ -1,7 +1,8 @@
 """Distribution: sharding rules, activation constraints, gradient
-compression, and the cross-pod DCN sync (the pod all-reduce and its BASS
-bookkeeping).  MoE's expert-parallel all-to-all is not ported
-(ROADMAP.md §1 item 7)."""
+compression, the cross-pod DCN sync (the pod all-reduce and its BASS
+bookkeeping), the counted collectives of the expert-parallel MoE block
+(``collectives``) and a launcher of ``torch.distributed`` ranks
+(``ranks``)."""
 from .dcn import CrossPodSync, StepFlow, cross_pod_allreduce
 from .sharding import (
     ACT_RULES_DECODE,

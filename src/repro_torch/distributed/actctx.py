@@ -5,9 +5,12 @@ Model code is mesh-agnostic; a launcher establishes a context
 resolves a spec for ``x`` under the active rules, with the reference's
 ``only_if`` and ``require_axis`` rules.  With no context active, where the
 rules resolve nothing, or on a mesh of one device, it returns ``x``
-unchanged.  The port places no tensor across devices, so a spec that
-resolves on a larger mesh raises.  The port's models do not call it (see
-``models/layers.py``): on one card every constraint is the identity.
+unchanged.  The port places no tensor across devices by a spec, so a spec
+that resolves on a larger mesh raises.  The port's models do not call it
+(see ``models/layers.py``).  What reads the context is the MoE block: under
+a rank mesh (``launch/mesh.py::_make_mesh``) with ``moe_impl="a2a"`` it
+takes the expert-parallel dispatch, which cuts its input by the rules'
+``batch`` and ``seq`` entries itself (``models/moe.py::a2a_layout``).
 """
 from __future__ import annotations
 

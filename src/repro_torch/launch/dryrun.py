@@ -17,8 +17,14 @@ JSON record under ``artifacts/dryrun_torch/`` holding:
   and ``model_flops_estimate``.
 * ``roofline``    — ``roofline_terms(...).to_dict()`` at the H100's record
   over the mesh's chip count.
-* ``collectives`` — null: the port issues no cross-device collective yet,
-  so ``dominant`` is compute or memory.
+* ``collectives`` — null, with ``collectives_note`` saying why: the port
+  issues collectives only in the expert-parallel MoE block
+  (``models/moe.py``, counted by ``hlo_analysis.counting_collectives``)
+  and the DCN all-reduce, while a production cell's collectives come from
+  the sharded model (parameters and activations placed by
+  ``distributed/sharding.py``'s rules), which the port does not run yet.
+  A partial count would pass for the whole, so none is written, and
+  ``dominant`` is compute or memory.
 
 The cell is the reference's accounting cell: ``scan_layers=False,
 attn_chunk=0``, one microbatch, AdamW moments in float32, and decode at the
@@ -258,7 +264,10 @@ def run_cell(
             "accounting_s": acct["accounting_s"],
         }
         record["collectives"] = None
-        record["collectives_note"] = "the port issues no cross-device collective yet"
+        record["collectives_note"] = (
+            "not counted: the port issues collectives only in the expert-parallel MoE "
+            "block and the DCN all-reduce; this cell's come from the sharded model "
+            "(distributed/sharding.py's rules across ranks), not ported yet")
         record["chip"] = H100_SXM.name
         record["roofline"] = roofline_terms(acct["flops"], acct["bytes"], CollectiveReport(),
                                             chips, acct["model_flops"], chip=H100_SXM).to_dict()

@@ -14,8 +14,12 @@ The TPU v5e constants become one record per card, :class:`Chip`, keyed by
 the name ``nvidia-smi`` prints; :func:`roofline_terms` takes one.  The
 reference's HLO-text parser (``parse_collectives`` and its replica-group
 helpers) is not carried: no torch program produces XLA's partitioned HLO.
-The port issues no cross-device collective yet; when it does, they are
-counted where ``torch.distributed`` issues them.
+Its counterpart is :func:`counting_collectives`, a context in which every
+collective the port issues through ``distributed/collectives.py`` (the
+expert-parallel MoE block's, and the reassembly of its output) adds one
+:class:`Collective` to a :class:`CollectiveReport`, under XLA's name for
+its kind (``all-gather``, ``all-reduce``, ``all-to-all``), with its
+group's size and its result's bytes.
 
 Wire-byte model per participating device (ring algorithms):
   all-gather: R·(g−1)/g   all-reduce: 2·M·(g−1)/g   reduce-scatter: S·(g−1)
@@ -23,8 +27,9 @@ Wire-byte model per participating device (ring algorithms):
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -105,6 +110,30 @@ class CollectiveReport:
 
     def count(self) -> int:
         return len(self.ops)
+
+
+_reports: List[CollectiveReport] = []
+
+
+@contextlib.contextmanager
+def counting_collectives() -> Iterator[CollectiveReport]:
+    """While active, every collective issued through
+    ``distributed/collectives.py`` on a group of more than one rank appends
+    one op (trips 1) to the report it yields, in issue order; nested
+    contexts each see it."""
+    report = CollectiveReport()
+    _reports.append(report)
+    try:
+        yield report
+    finally:
+        _reports.remove(report)
+
+
+def record_collective(kind: str, result_bytes: int, group: int, path: str) -> None:
+    """Count one collective in every active :func:`counting_collectives`."""
+    for report in _reports:
+        report.ops.append(Collective(kind, int(result_bytes), group, 1,
+                                     _wire_bytes(kind, result_bytes, group), path))
 
 
 def _wire_bytes(kind: str, result_bytes: int, g: int) -> float:

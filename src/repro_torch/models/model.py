@@ -43,8 +43,10 @@ class Model:
             return ed.encdec_defs(self.cfg)
         return model_defs(self.cfg)
 
-    def init(self, generator: torch.Generator, device="cuda") -> Tree:
-        return init_params(self.defs(), generator, self.cfg.param_dtype, device)
+    def init(self, generator: torch.Generator, device="cuda", shard=None) -> Tree:
+        """Seeded parameters on ``device``; ``shard`` keeps a rank's blocks
+        (``init_params``)."""
+        return init_params(self.defs(), generator, self.cfg.param_dtype, device, shard)
 
     def abstract(self) -> Tree:
         return abstract_params(self.defs(), self.cfg.param_dtype)

@@ -71,40 +71,59 @@ def unflatten(paths, leaves) -> Tree:
     return out
 
 
-def _init_leaf(p: P, generator: torch.Generator, dtype, device) -> torch.Tensor:
-    if p.init == "zeros":
-        return torch.zeros(p.shape, dtype=dtype, device=device)
-    if p.init == "ones":
-        return torch.ones(p.shape, dtype=dtype, device=device)
-    if p.init == "mamba_a":
-        # A_log init: log of 1..N broadcast over channels (mamba1).
-        n = p.shape[-1]
-        a = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))
-        return a.expand(p.shape).to(dtype).contiguous()
+def _init_leaf(p: P, generator: torch.Generator, dtype, device, index=None) -> torch.Tensor:
+    if p.init in ("zeros", "ones", "mamba_a"):
+        if p.init == "mamba_a":
+            # A_log init: log of 1..N broadcast over channels (mamba1).
+            n = p.shape[-1]
+            a = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))
+            whole = a.expand(p.shape).to(dtype).contiguous()
+        else:
+            fill = torch.zeros if p.init == "zeros" else torch.ones
+            whole = fill(p.shape, dtype=dtype, device=device)
+        return whole if index is None else whole[index].contiguous()
     if p.init != "normal":
         raise ValueError(f"unknown init {p.init!r}")
     # float32 normals scaled, then cast, as the reference does — one slice
     # along the first axis at a time, generated where the generator lives.
-    out = torch.empty(p.shape, dtype=dtype, device=device)
+    # With ``index`` (slices, one per axis) every slice is drawn whole and
+    # only its part of the block kept, so the block holds the numbers the
+    # whole leaf would.
+    shape = p.shape if index is None else torch.empty(p.shape, device="meta")[index].shape
+    out = torch.empty(shape, dtype=dtype, device=device)
     if out.numel() == 0:
         return out
-    flat = out.view(p.shape[0], -1) if out.dim() > 1 else out.view(-1, 1)
-    rows = max(1, _SLICE_ELEMS // max(flat.shape[1], 1))
-    for r0 in range(0, flat.shape[0], rows):
-        r1 = min(r0 + rows, flat.shape[0])
-        z = torch.randn((r1 - r0, flat.shape[1]), generator=generator,
-                        dtype=torch.float32, device=generator.device)
-        flat[r0:r1].copy_(z.mul_(p.stddev))
+    flat = out.view(shape[0], -1) if out.dim() > 1 else out.view(-1, 1)
+    lo, hi, _ = (slice(None) if index is None else index[0]).indices(p.shape[0])
+    cols = math.prod(p.shape[1:])
+    rows = max(1, _SLICE_ELEMS // max(cols, 1))
+    for r0 in range(0, p.shape[0], rows):
+        r1 = min(r0 + rows, p.shape[0])
+        z = torch.randn((r1 - r0, cols), generator=generator,
+                        dtype=torch.float32, device=generator.device).mul_(p.stddev)
+        a, b = max(r0, lo), min(r1, hi)
+        if index is None:
+            flat[r0:r1].copy_(z)
+        elif a < b:
+            block = (slice(a - r0, b - r0),) + tuple(index[1:])
+            out[a - lo:b - lo].copy_(z.view((r1 - r0,) + tuple(p.shape[1:]))[block])
+        del z    # before the next slice is drawn: one slice alive at a time
     return out
 
 
-def init_params(defs: Tree, generator: torch.Generator, dtype, device="cuda") -> Tree:
+def init_params(defs: Tree, generator: torch.Generator, dtype, device="cuda",
+                shard: Optional[Callable] = None) -> Tree:
     """Real parameters on ``device``: each ``normal`` leaf draws from
     ``generator`` (on whatever device it lives), leaves in sorted-path
-    order."""
+    order.  ``shard(path, P)`` → a tuple of slices (or None: the whole
+    leaf) keeps only that block of a leaf, holding the numbers the whole
+    tree would (a rank's shards, ``models/moe.py::rank_shard``); the
+    whole leaf is never held, only one generated slice of it at a time."""
     dtype = dtype_of(dtype)
     paths, defs_ = zip(*flatten(defs))
-    return unflatten(paths, [_init_leaf(p, generator, dtype, device) for p in defs_])
+    return unflatten(paths, [_init_leaf(p, generator, dtype, device,
+                                        shard(path, p) if shard else None)
+                             for path, p in zip(paths, defs_)])
 
 
 def abstract_params(defs: Tree, dtype) -> Tree:

@@ -862,3 +862,29 @@ def test_counted_k2_prefill_on_the_card_equals_its_meta_count(card):
             assert flash_attention.stats["launches"] - before == cfg.n_layers
     assert counts["cuda"] == counts["meta"]
     assert counts["cuda"][2]["flash_attention"][0] == cfg.n_layers
+
+
+def test_a2a_block_on_four_ranks_of_the_card_matches_one_rank_gather(card):
+    """moonshot-v1-16b-a3b's MoE block at full width (64 experts, 16 a
+    rank), B 1, S 512, float32 at capacity factor 8.0, on 4 gloo ranks
+    sharing the card as a (1, 4) rank mesh: every rank's whole output
+    within 1e-4 of the one-rank gather dispatch's, nothing dropped, and
+    each rank's collectives equal to the formula."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.expert import a2a_collectives
+
+    rules = {"batch": ("data",), "seq": "model"}
+    res = run_ranks("repro_torch.launch.expert:block", 4, dict(
+        device=f"cuda:{card.index or 0}", mesh=(1, 4), rules=rules, seed=0,
+        arch="moonshot-v1-16b-a3b", x_shape=(1, 512),
+        cases=[dict(dtype="float32", cfg=dict(capacity_factor=8.0), gather=True)]),
+        timeout_s=300)
+    cfg = get_config("moonshot-v1-16b-a3b").with_(capacity_factor=8.0)
+    want = a2a_collectives(cfg, {"data": 1, "model": 4}, rules, 1, 512, 4, 4)
+    r0 = res[0][0]
+    assert r0["drops"] == 0 and r0["drops_gather"] == 0
+    assert abs(r0["aux"] - r0["aux_gather"]) <= 1e-4
+    for (r,) in res:
+        assert r["ops"] == want and r["route"]["host_staged"] > 0
+        assert float((r["y"] - r0["y_gather"]).abs().max()) <= 1e-4

@@ -147,8 +147,8 @@ def test_combine_is_the_reference_scatter_add_in_bf16():
 
 
 def test_a2a_falls_back_without_mesh_context():
-    """The port's models run under no mesh context (the a2a dispatch is not
-    ported), so ``moe_impl="a2a"`` takes the gather path:
+    """Without a mesh context ``moe_impl="a2a"`` takes the gather path (the
+    expert-parallel dispatch needs a rank mesh: ``test_torch_moe_a2a.py``):
     the same result as ``"gather"`` and as the reference's fallback."""
     cfg, tp, ref_cfg, jp = _pair("phi3.5-moe-42b-a6.6b", moe_impl="a2a")
     tx, jx = _x(cfg, (2, 8))
