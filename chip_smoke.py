@@ -155,6 +155,24 @@ result lines are printed:
               (16 experts, 4 a rank) served the same way at the largest
               depth that fits; (d) every rank's counted collectives equal
               to ``launch/expert.py::a2a_collectives`` op for op.
+13. sharded — mistral-nemo-12b at full width sharded over 4 ranks of the
+              one card (``launch/sharded.py``), each holding its blocks of
+              every parameter by ``PARAM_RULES`` under the baseline
+              policy's rules (batch over ``data``, sequence over
+              ``model``), as (1, 4) and (2, 2) rank meshes, gloo staged
+              through host memory as in phase 12, once the card's memory
+              is back: (a) 2 layers in float32, the prefill logits of 2 of
+              phase 6's prompts and their loss against the one-rank
+              model's within 1e-4; (b) all 40 layers in bf16 with K2 on
+              each rank's heads (40 launches a prefill), the 4 ranks'
+              last-position logits no farther from the float32 prefill
+              than 1.5 × the one-rank bf16 logits are, and the same first
+              tokens; (c) on (2, 2) the bf16 loss of 2 × 1 024 tokens
+              within max(1e-3, 2 × the one-rank bf16 loss's distance) of
+              the float32 loss; (d) every rank's collectives equal to
+              ``launch/sharded.py::sharded_collectives``; per rank the
+              time of each step's first (counted) call and of one repeat,
+              wire bytes by kind, memory.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -784,7 +802,10 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # 132 SMs), at S - 1, at 0 and over a 4 096-position cache; then the
 # model's shapes — the prefills phase 9 serves (moonshot-v1-16b-a3b's 512
 # tokens over 16 heads of 128, whisper-base's 128 over 8 heads of 64; jamba
-# shares mistral's), then mistral-nemo-12b's prefill of a 512-token prompt
+# shares mistral's), each rank's heads of mistral's prefill in phase 13
+# (8 of 32 and 2 of 8 kv heads on a (1, 4) mesh, for one prompt and the
+# two a rank takes there; 16 and 4 on (2, 2)), then mistral-nemo-12b's
+# prefill of a 512-token prompt
 # (last: phase 5 times it) and its decode over 4 slots of a 1 024-position
 # cache.
 FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 6, 2, 64),
@@ -792,6 +813,7 @@ FLASH_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 6, 2, 64),
                 (1, 40, 4, 2, 64), (1, 40, 4, 2, 128), (2, 96, 4, 2, 64),
                 (1, 96, 8, 2, 128), (1, 384, 8, 2, 128), (1, 128, 14, 2, 128),
                 (1, 512, 16, 16, 128), (1, 128, 8, 8, 64),
+                (1, 512, 8, 2, 128), (2, 512, 8, 2, 128), (1, 512, 16, 4, 128),
                 (1, 512, 32, 8, 128)]
 DECODE_SHAPES = [(2, 512, 4, 2, 64, 137), (1, 1024, 8, 8, 128, 1023),
                  (2, 256, 6, 2, 64, 0), (1, 512, 16, 16, 64, 300),
@@ -800,10 +822,11 @@ DECODE_SHAPES = [(2, 512, 4, 2, 64, 137), (1, 1024, 8, 8, 128, 1023),
                  (4, 1024, 32, 8, 128, 600)]
 # K2's bfloat16 path is also held against the plain version of its own
 # arithmetic, ``ref.attention_ref(..., p_dtype=bfloat16, p_block=64)`` (P
-# rounded to bf16 against the running max of each 64-key tile): |got - want|
-# <= rtol |want| + atol, rtol one bf16 ulp at the bottom of a binade.  The
-# scores' float32 sums differ in order, which flips a rare rounding of P;
-# atol covers those flips (largest reading on the H100: 7.3e-4).
+# rounded to bf16 against the running max of each 64-key tile, from
+# float64): |got - want| <= rtol |want| + atol, rtol one bf16 ulp at the
+# bottom of a binade.  The kernel's float32 scores and ex2 can put a P
+# within a few float32 ulps of a rounding boundary on its other side; atol
+# covers such a flip where many keys share the row.
 DESIGN_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -10)
 ATTN_DESIGNS = {
     "flash_attention": "bf16: wgmma for Q.K^T and P.V (P rounded to bf16 in registers), "
@@ -972,11 +995,12 @@ def _prefill_logits(model, params, prompt, s_max, dev):
     return logits[0].float()
 
 
-def _prefill_logits_f32(cfg, params, prompt, dev):
-    """The prefill's last-position logits in float32 throughout, on the
+def _f32_forward(cfg, params, tokens, dev):
+    """The stack over ``tokens`` ``[B, S]`` in float32 throughout, on the
     plain attention path, with each layer's bf16 weights upcast as the
-    layer runs (a float32 copy of all the weights would not fit beside
-    the bf16 ones).  A uniform stack: dense or MoE."""
+    layer runs (a float32 copy of all the weights would not fit beside the
+    bf16 ones) → (the float32 model, its head's parameters, the last
+    layer's output).  A uniform stack: dense or MoE."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -989,14 +1013,38 @@ def _prefill_logits_f32(cfg, params, prompt, dev):
         return {k: up(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
 
     with torch.no_grad():
-        x = params["embed"][torch.as_tensor(prompt[None, :], device=dev).long()].float()
+        x = params["embed"][torch.as_tensor(tokens, device=dev).long()].float()
         rope = model._rope(torch.arange(x.shape[1], device=dev))
         mixer, ffn = tf._slot_kind(cfg, 0)
         for li in range(cfg.n_layers):
             lp = up(tf._index_tree(params["stack"], li))
             x, _, _ = tf._apply_layer_full(lp, x, cfg32, rope, mixer, ffn, False)
-        head = up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]})
-        return model._head(head, x[:, -1:])[0, 0]
+        return model, up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]}), x
+
+
+def _prefill_logits_f32(cfg, params, prompt, dev):
+    """The prefill's last-position logits in float32 throughout
+    (:func:`_f32_forward`) of one prompt, or ``[B, V]`` of a batch."""
+    import torch
+
+    model, head, x = _f32_forward(cfg, params, prompt[None, :] if prompt.ndim == 1 else prompt,
+                                  dev)
+    with torch.no_grad():
+        logits = model._head(head, x[:, -1:])[:, 0]
+    return logits[0] if prompt.ndim == 1 else logits
+
+
+def _loss_f32(cfg, params, tokens, dev):
+    """The mean next-token cross-entropy of ``tokens`` in float32
+    throughout (:func:`_f32_forward`)."""
+    import torch
+
+    model, head, x = _f32_forward(cfg, params, tokens, dev)
+    with torch.no_grad():
+        pred = model._head(head, x)[:, :-1]
+        tgt = torch.as_tensor(tokens[:, 1:], device=dev).long()
+        nll = torch.logsumexp(pred, -1) - torch.gather(pred, -1, tgt[..., None])[..., 0]
+        return float(nll.mean())
 
 
 def _greedy(model, params, prompt, n, dev, s_max=1024):
@@ -2870,6 +2918,167 @@ def phase_expert():
     return out
 
 
+# -- phase 13 ------------------------------------------------------------------
+
+# mistral-nemo-12b at full width on 4 ranks of the one card, each holding
+# its blocks of every parameter by PARAM_RULES, under the baseline policy's
+# activation rules (``launch/dryrun.py::policy_rules`` for a prefill or a
+# train cell on a ("data", "model") mesh); gloo, host-staged, as phase 12.
+SHARDED_MESHES = ((1, 4), (2, 2))
+SHARDED_RULES = {"batch": ("data",), "seq": "model", "vocab": "model"}
+SHARDED_PROMPTS = 2               # of phase 6's 512-token prompts
+SHARDED_LOSS_SHAPE = (2, 1024)
+SHARDED_LIMIT = 600               # seconds for the multi-rank run
+# (a) f32 at 2 layers against the one-rank model: the same products cut
+# over heads and columns, their partial sums added in another order.
+SHARDED_TOL = 1e-4
+# (b) bf16 at full depth: the reduce-scatter sums bf16 partial sums in
+# another order than one rank's product, so the gate is relative to the
+# one-rank bf16 logits' own distance from float32.
+SHARDED_BF16_FACTOR = 1.5
+SHARDED_REPS = 1                  # timed repeats of each step after the counted call
+
+
+def _sharded_references(cfg, prompts, loss_tokens, dev):
+    """The one-rank model on the card, the parameters from SEED: (a) f32 at
+    2 layers, the prefill logits and the loss of the prompts; (b) bf16 at
+    full depth, the prefill logits on K2 and in float32 throughout; (c)
+    the loss of ``loss_tokens`` in bf16 on K2 and in float32."""
+    import torch
+
+    from repro_torch.models.model import Model
+
+    out = {}
+    cfg2 = cfg.with_(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    for key, c in (("f32", cfg2), ("bf16", cfg)):
+        model = Model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        tok = torch.as_tensor(prompts, device=dev).long()
+        with torch.no_grad():
+            logits, caches = model.prefill(params, {"tokens": tok}, prompts.shape[1])
+            del caches
+            loss_tok = prompts if key == "f32" else loss_tokens
+            loss, _ = model.loss(params, {"tokens": torch.as_tensor(loss_tok, device=dev).long()})
+        out[key] = dict(logits=logits.float().cpu(), loss=float(loss))
+        if key == "bf16":
+            out[key]["logits_f32"] = _prefill_logits_f32(cfg, params, prompts, dev).cpu()
+            out[key]["loss_f32"] = _loss_f32(cfg, params, loss_tokens, dev)
+        del params
+        _free()
+    return out
+
+
+def phase_sharded(free_before):
+    """Phase 13: mistral-nemo-12b sharded over 4 ranks of one card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.launch.sharded import assemble_logits, sharded_collectives
+
+    t0 = time.perf_counter()
+    released = [_card_released(free_before)]
+    cuda = torch.device("cuda", 0)
+    cfg = get_config(SERVE["arch"]).with_(attn_impl="pallas", remat=False)
+    prompts = np.stack([r.prompt for r in make_requests(cfg, SHARDED_PROMPTS,
+                                                        SERVE["prompt_len"], 1, SEED)])
+    loss_tokens = np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size,
+                                                            SHARDED_LOSS_SHAPE)
+    ref = _sharded_references(cfg, prompts, loss_tokens, cuda)
+    ref_s = time.perf_counter() - t0
+    released.append(_card_released(free_before))
+
+    f32 = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    full = dict(attn_impl="pallas", remat=False)
+    cases = []
+    for mesh in SHARDED_MESHES:
+        cases.append(dict(mesh=mesh, cfg=dict(full, **f32),
+                          prefill=dict(tokens=prompts), loss=dict(tokens=prompts)))
+    for mesh in SHARDED_MESHES:
+        case = dict(mesh=mesh, cfg=full, prefill=dict(tokens=prompts, reps=SHARDED_REPS))
+        if mesh == (2, 2):
+            case["loss"] = dict(tokens=loss_tokens, reps=SHARDED_REPS)
+        cases.append(case)
+    t1 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run", 4,
+                    dict(device="cuda:0", arch=SERVE["arch"], rules=SHARDED_RULES, seed=SEED,
+                         cases=cases), timeout_s=SHARDED_LIMIT,
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t1
+
+    b, v = prompts.shape[0], cfg.vocab_size
+    err = lambda a, c: float((a - c).abs().max())  # noqa: E731
+    out = dict(rules=SHARDED_RULES, prompts=list(prompts.shape), loss_shape=SHARDED_LOSS_SHAPE,
+               reference_s=ref_s, ranks_s=ranks_s, released_s=released,
+               reference_losses=dict(f32_2_layers=ref["f32"]["loss"],
+                                     bf16=ref["bf16"]["loss"], f32=ref["bf16"]["loss_f32"]))
+    fails = []
+    for i, case in enumerate(cases):
+        ranks = [r[i] for r in res]
+        mesh = dict(zip(("data", "model"), case["mesh"]))
+        depth = "f32_2_layers" if "n_layers" in case["cfg"] else "bf16"
+        label = f"{depth}_{case['mesh'][0]}x{case['mesh'][1]}"
+        ccfg = cfg.with_(**case["cfg"])
+        size = 4 if depth != "bf16" else 2
+        logits = assemble_logits(ranks, b, v)
+        k2 = [r["prefill"]["k2_launches"] for r in ranks]
+        want = {step: sharded_collectives(ccfg, mesh, SHARDED_RULES, *case[step]["tokens"].shape,
+                                          size, size, step)
+                for step in ("prefill", "loss") if step in case}
+        for step, ops in want.items():
+            if any(r[step]["ops"] != ops for r in ranks):
+                fails.append(f"(d) {label} {step}: a rank's ops differ from the formula")
+        entry = dict(
+            k2_launches=k2,
+            collectives={step: dict(count=len(ops), wire_bytes=report_of(ops).by_kind())
+                         for step, ops in want.items()},
+            prefill_ms=[r["prefill"]["ms"] for r in ranks],
+            init_s=[r["init_s"] for r in ranks],
+            params_allocated=[r["params_allocated"] for r in ranks],
+            max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+            kv_heads=[r["kv_heads"] for r in ranks], route=ranks[0]["route"],
+            finite=bool(torch.isfinite(logits).all()))
+        if "loss" in case:
+            entry.update(losses=[r["loss"]["loss"] for r in ranks],
+                         loss_ms=[r["loss"]["ms"] for r in ranks])
+        if depth != "bf16":
+            entry.update(logits_err=err(logits, ref["f32"]["logits"]),
+                         loss_err=max(abs(r["loss"]["loss"] - ref["f32"]["loss"]) for r in ranks),
+                         tolerance=SHARDED_TOL)
+            if not (entry["logits_err"] <= SHARDED_TOL and entry["loss_err"] <= SHARDED_TOL):
+                fails.append(f"(a) {label}: logits {entry['logits_err']}, loss "
+                             f"{entry['loss_err']} against one rank")
+        else:
+            l32, l16 = ref["bf16"]["logits_f32"], ref["bf16"]["logits"]
+            entry.update(ranks_vs_f32=err(logits, l32), one_rank_vs_f32=err(l16, l32),
+                         ranks_vs_one_rank=err(logits, l16), max_abs_logit=float(l32.abs().max()),
+                         first_tokens=logits.argmax(-1).tolist(),
+                         first_tokens_one_rank=l16.argmax(-1).tolist())
+            if not entry["ranks_vs_f32"] <= SHARDED_BF16_FACTOR * entry["one_rank_vs_f32"]:
+                fails.append(f"(b) {label}: {entry['ranks_vs_f32']} from float32 against "
+                             f"one rank's {entry['one_rank_vs_f32']}")
+            if entry["first_tokens"] != entry["first_tokens_one_rank"]:
+                fails.append(f"(b) {label}: first tokens {entry['first_tokens']}")
+            if "loss" in case:
+                d32 = ref["bf16"]["loss_f32"]
+                dist = max(abs(r["loss"]["loss"] - d32) for r in ranks)
+                bound = max(1e-3, 2 * abs(ref["bf16"]["loss"] - d32))
+                entry.update(loss_vs_f32=dist, loss_bound=bound)
+                if not dist <= bound:
+                    fails.append(f"(c) {label}: loss {dist} from float32, bound {bound}")
+        if any(k != ccfg.n_layers for k in k2) or not entry["finite"]:
+            fails.append(f"{label}: K2 launched {k2} times a prefill of {ccfg.n_layers} layers, "
+                         f"finite {entry['finite']}")
+        out[label] = entry
+    out["phase_s"] = time.perf_counter() - t0
+    log("sharded", **out)
+    if fails:
+        raise AssertionError(f"phase 13: {fails}")
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -2942,6 +3151,7 @@ def main() -> int:
     trainer = phase_trainer()
     phase_cost()
     expert = phase_expert()
+    sharded = phase_sharded(expert["free_bytes"])
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -2973,7 +3183,8 @@ def main() -> int:
         "bound_ms_failure_shape_widest": fail_cuda["k1"]["widest"]["bound_ms"],
     }, _attention_entry("flash_attention", attn["flash_attention"], serve["k2_launches"],
                         **_k2_family_launches(models),
-                        launches_a2a_serve_path=expert["moe"]["k2_launches"][0]),
+                        launches_a2a_serve_path=expert["moe"]["k2_launches"][0],
+                        launches_sharded_serve_path=sharded["bf16_2x2"]["k2_launches"][0]),
         _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"]), {
         "name": "mamba_scan",
         "route": "cuda",

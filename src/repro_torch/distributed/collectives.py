@@ -1,19 +1,21 @@
-"""The collectives of the expert-parallel MoE block, over a rank mesh.
+"""The collectives of the port's programs over a rank mesh: the
+expert-parallel MoE block's and the sharded dense model's.
 
 Each function issues one ``torch.distributed`` collective over this rank's
 process group for a set of mesh axes (``launch/mesh.py``), with the
-semantics of the ``jax.lax`` collective the reference's ``shard_map`` body
-issues, and counts it in every active
-``launch.hlo_analysis.counting_collectives`` under XLA's name for its
-kind, its group's size and its result's bytes.  Axes of size 1 issue
-nothing and count nothing (XLA removes such collectives too).
+semantics of a ``jax.lax`` collective (the one the reference's
+``shard_map`` body issues, or one XLA's partitioner places), and counts
+it in every active ``launch.hlo_analysis.counting_collectives`` under
+XLA's name for its kind, its group's size and its result's bytes.  Axes
+of size 1 issue nothing and count nothing (XLA removes such collectives
+too).
 
 The route depends on the group's backend alone.  NCCL takes the tensors
 where they are.  Gloo on a CUDA tensor stages the payload through host
 memory: a copy to the host, the collective there, a copy back
 (``stats["host_staged"]``); gloo on a host tensor runs in place
-(``stats["direct"]``).  Gloo takes the list form of ``all_gather`` and
-``all_to_all_single``, which both backends take.
+(``stats["direct"]``).  Gloo takes the list forms of ``all_gather`` and
+``reduce_scatter``, and ``all_to_all_single``, which both backends take.
 """
 from __future__ import annotations
 
@@ -92,4 +94,21 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, path: str = "") -> torch.Tensor
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     record_collective("all-to-all", _nbytes(out), size, path)
+    return out.to(x.device)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int, path: str = "") -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
+    the sum over the group, cut into as many blocks along ``dim`` as the
+    group has ranks; each rank keeps the block at its coordinate."""
+    group, size = _group(mesh, axes)
+    if group is None:
+        return x
+    if x.shape[dim] % size:
+        raise ValueError(f"reduce_scatter of {tuple(x.shape)} along {dim} over {size} ranks")
+    src = x.cpu() if _staged(x, group) else x
+    parts = [p.contiguous() for p in src.chunk(size, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+    record_collective("reduce-scatter", _nbytes(out), size, path)
     return out.to(x.device)

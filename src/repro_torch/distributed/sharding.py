@@ -137,6 +137,45 @@ def spec_for(
     return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries)
 
 
+def block_index(shape: Tuple[int, ...], spec: Spec, mesh_shape: Dict[str, int],
+                coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slices of the block of a ``shape`` leaf that the rank at
+    ``coords`` (axis → index) holds under ``spec``: an entry naming one
+    axis or a tuple of axes cuts its dimension into as many equal blocks
+    as those axes hold ranks, numbered row-major over the tuple's axes in
+    its order, as ``NamedSharding`` places them (an axis the mesh lacks
+    counts one rank).  Dimensions past the spec are whole."""
+    out = [slice(None)] * len(shape)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n, idx = 1, 0
+        for a in axes:
+            size = mesh_shape.get(a, 1)
+            n, idx = n * size, idx * size + (coords[a] if size > 1 else 0)
+        if shape[i] % n:
+            raise ValueError(f"{tuple(shape)}: {shape[i]} does not split over {entry} ({n})")
+        blk = shape[i] // n
+        if n > 1:
+            out[i] = slice(idx * blk, (idx + 1) * blk)
+    return tuple(out)
+
+
+def rank_index(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...], mesh: Mesh,
+               coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """A rank's slices of a parameter with logical ``axes``, by
+    :func:`spec_for` under :data:`PARAM_RULES`."""
+    return block_index(shape, spec_for(shape, axes, mesh, PARAM_RULES), mesh.shape, coords)
+
+
+def rank_shard(mesh: Mesh):
+    """For ``init_params(shard=...)``: every leaf → this rank's slices of
+    it (:func:`rank_index`) on the rank mesh ``mesh``."""
+    coords = mesh.coords
+    return lambda path, p: rank_index(p.shape, p.axes, mesh, coords)
+
+
 def param_shardings(defs: Tree, mesh: Mesh, rules=None) -> Tree:
     from ..models.params import tree_map_defs
 

@@ -13,7 +13,8 @@ Three more spell out the arithmetic of the kernels' designs, for the
 checks of the kernels and their tests only: ``attention_ref(...,
 p_dtype=torch.bfloat16, p_block=64)`` rounds the probabilities before P.V
 as K2's tensor-core path does, each key tile's against the running row
-max, :func:`decode_split_ref` computes K3's per-chunk partials and their
+max (computing in float64, so that each P is rounded from its exact
+value), :func:`decode_split_ref` computes K3's per-chunk partials and their
 merge, and :func:`mamba_scan_design_ref` rounds K4's recurrence as the
 kernel does.
 """
@@ -41,12 +42,17 @@ def attention_ref(
     row max; with ``p_block``, the running row max over the blocks of
     ``p_block`` keys up to each key's own, as a flash kernel that walks the
     keys in blocks rounds them, each block's products then rescaled by
-    e^(m - row max) in float32."""
+    e^(m - row max).  This form computes in float64: a P that float32
+    arithmetic puts a few ulps to the wrong side of a rounding boundary
+    (or on it, where it ties to even) would round one step off the exact
+    value's rounding, which at a row of few keys moves the output by more
+    than the kernel checks allow."""
     b, nq, sq, hd = q.shape
     nkv, sk = k.shape[1], k.shape[2]
     g = nq // nkv
-    qg = q.reshape(b, nkv, g, sq, hd).float()
-    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / (hd ** 0.5)
+    dt = torch.float32 if p_dtype is None else torch.float64
+    qg = q.reshape(b, nkv, g, sq, hd).to(dt)
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.to(dt)) / (hd ** 0.5)
     ki = torch.arange(sk, device=q.device)[None, :]
     if causal:
         qi = torch.arange(sq, device=q.device)[:, None]
@@ -65,7 +71,7 @@ def attention_ref(
             run = blocks.unflatten(-1, (nb, p_block)).amax(dim=-1).cummax(dim=-1).values
             mj = run.repeat_interleave(p_block, dim=-1)[..., :sk]
         e, w = torch.exp(s - mj), torch.exp(mj - m)
-        out = torch.einsum("bkgqs,bksh->bkgqh", e.to(p_dtype).float() * w, v.float())
+        out = torch.einsum("bkgqs,bksh->bkgqh", e.to(p_dtype).to(dt) * w, v.to(dt))
         out = out / (e * w).sum(dim=-1, keepdim=True)
     return out.reshape(b, nq, sq, hd).to(q.dtype)
 

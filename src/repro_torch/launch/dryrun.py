@@ -17,13 +17,14 @@ JSON record under ``artifacts/dryrun_torch/`` holding:
   and ``model_flops_estimate``.
 * ``roofline``    — ``roofline_terms(...).to_dict()`` at the H100's record
   over the mesh's chip count.
-* ``collectives`` — null, with ``collectives_note`` saying why: the port
-  issues collectives only in the expert-parallel MoE block
-  (``models/moe.py``, counted by ``hlo_analysis.counting_collectives``)
-  and the DCN all-reduce, while a production cell's collectives come from
-  the sharded model (parameters and activations placed by
-  ``distributed/sharding.py``'s rules), which the port does not run yet.
-  A partial count would pass for the whole, so none is written, and
+* ``collectives`` — null, with ``collectives_note`` saying why: a
+  production cell's collectives come from the sharded model (parameters
+  and activations placed by ``distributed/sharding.py``'s rules).  The
+  port runs a dense model's prefill and loss sharded over the ranks of a
+  rank mesh (``launch/sharded.py``, counted by
+  ``hlo_analysis.counting_collectives``), but the dry run has no ranks and
+  counts none yet; the other step kinds and families are not sharded.  A
+  partial count would pass for the whole, so none is written, and
   ``dominant`` is compute or memory.
 
 The cell is the reference's accounting cell: ``scan_layers=False,
@@ -265,9 +266,10 @@ def run_cell(
         }
         record["collectives"] = None
         record["collectives_note"] = (
-            "not counted: the port issues collectives only in the expert-parallel MoE "
-            "block and the DCN all-reduce; this cell's come from the sharded model "
-            "(distributed/sharding.py's rules across ranks), not ported yet")
+            "not counted: this cell's collectives come from the sharded model "
+            "(distributed/sharding.py's rules across ranks); a dense model's prefill and "
+            "loss run sharded on a rank mesh (launch/sharded.py), but the dry run has no "
+            "ranks and does not count their collectives yet")
         record["chip"] = H100_SXM.name
         record["roofline"] = roofline_terms(acct["flops"], acct["bytes"], CollectiveReport(),
                                             chips, acct["model_flops"], chip=H100_SXM).to_dict()

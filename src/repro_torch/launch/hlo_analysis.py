@@ -16,10 +16,11 @@ reference's HLO-text parser (``parse_collectives`` and its replica-group
 helpers) is not carried: no torch program produces XLA's partitioned HLO.
 Its counterpart is :func:`counting_collectives`, a context in which every
 collective the port issues through ``distributed/collectives.py`` (the
-expert-parallel MoE block's, and the reassembly of its output) adds one
-:class:`Collective` to a :class:`CollectiveReport`, under XLA's name for
-its kind (``all-gather``, ``all-reduce``, ``all-to-all``), with its
-group's size and its result's bytes.
+expert-parallel MoE block's and the reassembly of its output, and the
+sharded dense model's) adds one :class:`Collective` to a
+:class:`CollectiveReport`, under XLA's name for its kind (``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``), with its group's size
+and its result's bytes.
 
 Wire-byte model per participating device (ring algorithms):
   all-gather: R·(g−1)/g   all-reduce: 2·M·(g−1)/g   reduce-scatter: S·(g−1)

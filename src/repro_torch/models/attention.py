@@ -6,11 +6,18 @@ the hand-written flash-attention kernel (K2) instead, as the reference
 routes it through its Pallas kernel; the two are held against each other
 in ``tests/test_torch_attention.py``.  Decode stays on the plain path, as
 in the reference.  The reference's mesh-sharding constraints are no-ops
-without a mesh and are dropped (see ``layers``).
+without a mesh and are dropped (see ``layers``).  On a rank mesh the
+dense model hands :func:`full_attention` its ``RankLayout``: the block of
+the residual stream is gathered along the sequence, q, k and v are
+projected on this rank's heads (column-parallel), the attention runs on
+those heads over the whole sequence (K2 under ``attn_impl="pallas"``),
+and the row-parallel output projection's partial sums are reduce-scattered
+back.  Kv heads that do not split over ``model`` stay whole on every rank,
+which takes the ones its q heads read (:func:`rank_kv_heads`).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,17 +118,58 @@ def causal_mask(sq: int, sk: int, offset: int = 0, device=None) -> torch.Tensor:
     return (ki <= qi + offset)[None, None, None]
 
 
+def local_kv_heads(n_heads: int, n_kv_heads: int, q0: int, nq_loc: int) -> List[int]:
+    """The global kv heads that q heads ``q0 .. q0 + nq_loc - 1`` read
+    (GQA: q head ``j`` reads kv head ``j // (n_heads // n_kv_heads)``),
+    one per local group: consecutive local q heads that share a kv head
+    form a group when every group has the same size, else each q head is
+    its own group (its kv head listed once for it)."""
+    reads = [(q0 + j) // (n_heads // n_kv_heads) for j in range(nq_loc)]
+    uniq = sorted(set(reads))
+    g = nq_loc // len(uniq)
+    if all(reads[j] == uniq[j // g] for j in range(nq_loc)) and g * len(uniq) == nq_loc:
+        return uniq
+    return reads
+
+
+def rank_kv_heads(cfg: ModelConfig, w_q: torch.Tensor, w_k: torch.Tensor, mi: int) -> List[int]:
+    """The global kv heads whose k and v a rank computes, from its blocks
+    of ``w_q`` and ``w_k`` (heads on the second to last dimension) at
+    coordinate ``mi`` along ``model``: where the q heads split and the kv
+    heads stay whole, those its q heads read (:func:`local_kv_heads`);
+    else the kv heads of its block."""
+    nq_loc, nkv_loc = w_q.shape[-2], w_k.shape[-2]
+    if nq_loc != cfg.n_heads and nkv_loc == cfg.n_kv_heads:
+        return local_kv_heads(cfg.n_heads, cfg.n_kv_heads, mi * nq_loc, nq_loc)
+    k0 = mi * nkv_loc if nkv_loc != cfg.n_kv_heads else 0
+    return list(range(k0, k0 + nkv_loc))
+
+
 def full_attention(
     p: dict,
     x: torch.Tensor,                    # [B, S, d]
     cfg: ModelConfig,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     causal: bool = True,
+    lay=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Self-attention over the whole sequence → (out, (k, v) for caching)."""
+    """Self-attention over the whole sequence → (out, (k, v) for caching).
+
+    With ``lay`` (a rank mesh's ``RankLayout``), ``x`` is this rank's
+    block of the residual stream and ``p`` its blocks of the weights, with
+    ``d_model`` whole; the output is this rank's block, and k, v are this
+    rank's rows over the whole sequence, on its kv heads
+    (:func:`rank_kv_heads`)."""
+    w_k, w_v, heads_split = p["w_k"], p["w_v"], False
+    if lay is not None:
+        x = lay.gather_seq(x, "attn/in")
+        heads_split = p["w_q"].shape[1] != cfg.n_heads
+        if heads_split and w_k.shape[1] == cfg.n_kv_heads:    # kv heads whole
+            kv = rank_kv_heads(cfg, p["w_q"], w_k, lay.mi)
+            w_k, w_v = w_k[:, kv], w_v[:, kv]
     q = _proj(x, p["w_q"])
-    k = _proj(x, p["w_k"])
-    v = _proj(x, p["w_v"])
+    k = _proj(x, w_k)
+    v = _proj(x, w_v)
     q, k = _qk_normalize(p, q, k, cfg)
     if rope is not None:
         cos, sin = rope
@@ -133,7 +181,10 @@ def full_attention(
         out = kops.flash_attention(q, k, v, causal=True)
     else:
         out = _chunked_attention(q, k, v, causal, cfg.attn_chunk)
-    return _out_proj(out, p["w_o"]), (k, v)
+    y = _out_proj(out, p["w_o"])
+    if lay is not None:
+        y = lay.scatter_seq(y, heads_split, "attn/out")
+    return y, (k, v)
 
 
 def decode_attention(

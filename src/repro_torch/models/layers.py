@@ -1,8 +1,14 @@
 """Shared layer primitives: RMSNorm, RoPE, sinusoidal positions, MLPs.
 
-The reference constrains activations to a mesh sharding here
-(``distributed.actctx.constrain``); with no mesh that call is a no-op, and
-the port runs on one card, so it is dropped.
+The reference constrains the MLP's activations here
+(``distributed.actctx.constrain``): its hidden activation to ``d_ff``
+over ``model`` where the rules map ``d_ff`` (not under the baseline
+policy), its output to the residual stream's layout.  Without a rank mesh
+both are no-ops and the port drops them.  On a rank mesh the dense model
+hands :func:`mlp_block` its ``RankLayout`` (``distributed/actctx.py``),
+and the block runs Megatron's MLP on this rank's ``d_ff`` columns: the
+sequence gathered, column-parallel gate and up, row-parallel down, and the
+partial sums reduce-scattered back to the residual stream's block.
 """
 from __future__ import annotations
 
@@ -79,13 +85,26 @@ def mlp_defs(cfg: ModelConfig, width: Optional[int] = None) -> dict:
     }
 
 
-def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated (swiglu) or plain (tanh-approximate GELU, jax's default) MLP."""
+def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig, lay=None) -> torch.Tensor:
+    """Gated (swiglu) or plain (tanh-approximate GELU, jax's default) MLP.
+
+    With ``lay`` (a rank mesh's ``RankLayout``), ``x`` is this rank's
+    block of the residual stream and ``p`` its blocks of the weights, with
+    ``d_model`` whole: the block is gathered along the sequence, the
+    product runs on this rank's ``d_ff`` columns, and its share of the
+    output is reduce-scattered back (where ``d_ff`` does not split over
+    ``model``, every rank holds every column and keeps its positions)."""
+    if lay is not None:
+        x = lay.gather_seq(x, "mlp/in")
     if cfg.mlp_kind == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
         h = F.silu(g.float()).to(x.dtype) * u
-        return h @ p["w_down"]
-    h = x @ p["w_in"]
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ p["w_out"]
+        y = h @ p["w_down"]
+    else:
+        h = x @ p["w_in"]
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        y = h @ p["w_out"]
+    if lay is not None:
+        y = lay.scatter_seq(y, h.shape[-1] != cfg.d_ff, "mlp/out")
+    return y

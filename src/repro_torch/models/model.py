@@ -13,6 +13,25 @@ Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub),
 ``frames`` (audio stub), optional ``loss_mask``.  ``decode`` returns
 ``[B, V]`` logits for every family (the reference's encoder-decoder step
 keeps a length-1 sequence axis, ``[B, 1, V]``).
+
+Under an ``activation_sharding`` context whose mesh is a rank mesh of more
+than one rank, a dense model's ``loss`` and ``prefill`` run sharded
+(``distributed/actctx.py::rank_layout``), as the reference's partitioned
+cell under the baseline policy: ``params`` are this rank's blocks by
+``PARAM_RULES`` (``Model.init(shard=sharding.rank_shard(mesh))``,
+``convert.shard_params``), ``batch`` the whole batch on every rank.  The
+embedding is a vocab-parallel lookup (rows outside this rank's block of
+the vocabulary give 0), reduce-scattered into the residual stream's block
+(the reference's ``constrain`` at ``_assemble_input``); the layers run on
+this rank's heads and ``d_ff`` columns; the head is vocab-parallel.
+``prefill`` returns this rank's block of the last position's logits,
+``[B / batch ranks, V / model ranks]`` (the reference's output spec
+``(batch, vocab)``), and caches of this rank's rows and kv heads.
+``loss`` takes a vocab-parallel cross-entropy — each rank's log-sum-exp
+and gold logit over its block of the vocabulary, gathered over ``model``
+and combined — and returns the mean over every position of the global
+batch, the same on every rank.  Forward only: under autograd it raises
+(the sharded train step is not ported).
 """
 from __future__ import annotations
 
@@ -55,10 +74,23 @@ class Model:
         return param_axes(self.defs())
 
     # -- embedding / head -------------------------------------------------------
-    def _embed(self, params: Tree, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(dtype_of(self.cfg.compute_dtype))
+    def _embed(self, params: Tree, tokens: torch.Tensor, lay=None) -> torch.Tensor:
+        dtype = dtype_of(self.cfg.compute_dtype)
+        if lay is None:
+            return params["embed"][tokens].to(dtype)
+        emb = lay.gather_params({"embed": params["embed"]}, self.defs(), "embed")["embed"]
+        n_v = emb.shape[0]
+        if n_v == self.cfg.vocab_size:
+            return lay.scatter_seq(emb[tokens].to(dtype), False, "embed")
+        idx = tokens - lay.mi * n_v
+        inside = (idx >= 0) & (idx < n_v)
+        x = torch.where(inside[..., None], emb[idx.clamp(0, n_v - 1)], 0).to(dtype)
+        return lay.scatter_seq(x, True, "embed")
 
-    def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Tree, x: torch.Tensor, lay=None) -> torch.Tensor:
+        if lay is not None:
+            head = {k: params[k] for k in ("ln_f", "lm_head")}
+            params = lay.gather_params(head, self.defs(), "head")
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
             logits = x @ params["embed"].T
@@ -66,13 +98,29 @@ class Model:
             logits = x @ params["lm_head"]
         return logits.float()
 
+    def _layout(self, batch: Dict[str, torch.Tensor]):
+        """The rank layout of this batch under the active context (a dense
+        model on a rank mesh), or None."""
+        if self.cfg.family != "dense":
+            return None
+        from ..distributed.actctx import rank_layout
+
+        lay = rank_layout(*batch["tokens"].shape, self.cfg.d_model)
+        if lay is not None and (torch.is_grad_enabled() or self.cfg.tie_embeddings):
+            raise NotImplementedError("the sharded model runs forward only, with an untied head")
+        return lay
+
     def _rope(self, positions: torch.Tensor):
         if not self.cfg.use_rope or self.cfg.n_heads == 0:
             return None
         return rope_tables(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
 
-    def _assemble_input(self, params: Tree, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Token embeddings with modality-stub prefixes prepended."""
+    def _assemble_input(self, params: Tree, batch: Dict[str, torch.Tensor],
+                        lay=None) -> torch.Tensor:
+        """Token embeddings with modality-stub prefixes prepended (``lay``:
+        this rank's block of the dense model's, from its rows)."""
+        if lay is not None:
+            return self._embed(params, lay.rows(batch["tokens"]), lay)
         x = self._embed(params, batch["tokens"])
         if self.cfg.family == "vlm":
             vis = batch["vision_embeds"].to(x.dtype)     # [B, n_vis, d]
@@ -87,33 +135,62 @@ class Model:
         positions where given) plus the auxiliary loss → (total, {"ce",
         "aux"})."""
         cfg = self.cfg
+        tokens, mask = batch["tokens"], batch.get("loss_mask")
+        lay = None
         if cfg.family == "encdec":
             enc = ed.encode(params, batch["frames"], cfg)
-            logits, _ = ed.decode_full(params, batch["tokens"], enc, cfg)
+            logits, _ = ed.decode_full(params, tokens, enc, cfg)
             aux = torch.zeros((), dtype=torch.float32, device=logits.device)
             n_prefix = 0
+        elif (lay := self._layout(batch)) is not None:
+            logz, gold, aux = self._sharded_nll(params, batch, lay)
+            mask = None if mask is None else lay.rows(mask)
         else:
             x = self._assemble_input(params, batch)
             rope = self._rope(torch.arange(x.shape[1], device=x.device))
             x, aux, _ = apply_stack_full(cfg, params["stack"], x, rope)
             logits = self._head(params, x)
             n_prefix = cfg.n_vision_tokens if cfg.family == "vlm" else 0
-
-        tokens = batch["tokens"]
-        # predict token t+1 from position (n_prefix + t)
-        pred = logits[:, n_prefix: n_prefix + tokens.shape[1] - 1]
-        tgt = tokens[:, 1:].long()
-        logz = torch.logsumexp(pred, dim=-1)
-        gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
+        if lay is None:
+            # predict token t+1 from position (n_prefix + t)
+            pred = logits[:, n_prefix: n_prefix + tokens.shape[1] - 1]
+            logz = torch.logsumexp(pred, dim=-1)
+            gold = torch.gather(pred, -1, tokens[:, 1:].long()[..., None])[..., 0]
         nll = logz - gold
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            m = mask[:, 1:].float()
-            ce = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
-        else:
+        if mask is None and lay is None:
             ce = nll.mean()
+        else:
+            m = torch.ones_like(nll) if mask is None else mask[:, 1:].float()
+            sums = torch.stack([(nll * m).sum(), m.sum()])
+            if lay is not None:     # over the batch's ranks
+                from ..distributed.collectives import psum
+
+                sums = psum(sums, lay.mesh, lay.batch, "loss/mean")
+            ce = sums[0] / torch.clamp(sums[1], min=1.0)
         total = ce + cfg.aux_loss_weight * aux
         return total, {"ce": ce, "aux": aux}
+
+    def _sharded_nll(self, params: Tree, batch: Dict[str, torch.Tensor], lay):
+        """On a rank mesh (module docstring): this rank's rows' (log-sum-exp,
+        gold logit) of every next-token prediction over the whole
+        vocabulary, by a vocab-parallel cross-entropy, and the aux loss."""
+        from ..distributed.collectives import all_gather
+
+        x = self._assemble_input(params, batch, lay)
+        rope = self._rope(torch.arange(lay.s, device=x.device))
+        x, aux, _ = apply_stack_full(self.cfg, params["stack"], x, rope, lay=lay)
+        pred = self._head(params, lay.gather_seq(x, "loss/x"), lay)[:, :-1]   # this rank's V
+        n_v = pred.shape[-1]
+        split = n_v != self.cfg.vocab_size
+        tgt = lay.rows(batch["tokens"])[:, 1:].long() - (lay.mi * n_v if split else 0)
+        inside = (tgt >= 0) & (tgt < n_v)
+        gold = torch.gather(pred, -1, tgt.clamp(0, n_v - 1)[..., None])[..., 0]
+        part = torch.stack([torch.logsumexp(pred, dim=-1), torch.where(inside, gold, 0.0)])
+        if split:
+            part = all_gather(part, lay.mesh, "model", 0, "loss/vocab").view(
+                lay.n_model, *part.shape)
+            part = torch.stack([torch.logsumexp(part[:, 0], dim=0), part[:, 1].sum(dim=0)])
+        return part[0], part[1], aux
 
     # -- serving ---------------------------------------------------------------
     def cache_defs(self, batch: int, s_max: int) -> Tree:
@@ -139,12 +216,19 @@ class Model:
             logits, states = ed.decode_full(params, batch["tokens"], enc, self.cfg,
                                             collect_state=True)
             return logits[:, -1], self._pad_states(states, s_max)
-        x = self._assemble_input(params, batch)
-        rope = self._rope(torch.arange(x.shape[1], device=x.device))
+        lay = self._layout(batch)
+        x = self._assemble_input(params, batch, lay)
+        s = x.shape[1] if lay is None else lay.s
+        rope = self._rope(torch.arange(s, device=x.device))
         x, _, states = apply_stack_full(
-            self.cfg, params["stack"], x, rope, collect_state=True
+            self.cfg, params["stack"], x, rope, collect_state=True, lay=lay
         )
-        logits = self._head(params, x[:, -1:])[:, 0]
+        last = x[:, -1:]
+        if lay is not None and lay.seq_sharded:     # the last position's block is the last rank's
+            from ..distributed.collectives import all_gather
+
+            last = all_gather(last, lay.mesh, "model", 1, "prefill/last")[:, -1:]
+        logits = self._head(params, last, lay)[:, 0]
         return logits, self._pad_states(states, s_max)
 
     def _pad_states(self, states: Tree, s_max: int) -> Tree:

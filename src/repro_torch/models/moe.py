@@ -232,17 +232,10 @@ def a2a_layout(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int, s: int) 
 def shard_index(name: str, shape, mesh_shape: dict, coords: dict) -> Tuple[slice, ...]:
     """The slices of a rank's block of the block's leaf ``name`` of
     ``shape``, by :data:`A2A_PARAM_SPECS`."""
+    from ..distributed.sharding import block_index
+
     spec = A2A_PARAM_SPECS[name]
-    lead = len(shape) - len(spec)
-    out = [slice(None)] * lead
-    for n, axis in zip(shape[lead:], spec):
-        size = mesh_shape.get(axis, 1) if axis is not None else 1
-        if n % size:
-            raise ValueError(f"{name} {tuple(shape)}: {n} does not split over {axis} {size}")
-        blk = n // size
-        out.append(slice(coords[axis] * blk, (coords[axis] + 1) * blk) if size > 1
-                   else slice(None))
-    return tuple(out)
+    return block_index(shape, (None,) * (len(shape) - len(spec)) + spec, mesh_shape, coords)
 
 
 def rank_shard(cfg: ModelConfig, mesh):

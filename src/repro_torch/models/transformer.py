@@ -16,6 +16,13 @@ the hybrid stack (``torch.utils.checkpoint``, the reference's
 ``[L, B, k-1, d_in]`` and ``[L, B, d_in, N]``, the hybrid's nested under
 ``"slot{s}"`` with ``L`` its periods — and each layer writes its slice in
 place.
+
+On a rank mesh a dense stack runs sharded (``lay``, the model's
+``RankLayout``): the residual stream between layers is this rank's block
+(the reference's ``constrain(x, ("batch", "seq", None))`` at each layer),
+each layer's weights are gathered along ``d_model`` by one collective just
+before the layer runs and dropped after it, and the layer runs attention
+and MLP on this rank's heads and ``d_ff`` columns.
 """
 from __future__ import annotations
 
@@ -113,14 +120,15 @@ def _stack_trees(trees) -> Tree:
 # ---------------------------------------------------------------------------
 
 def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
-                      ffn: str, collect_state: bool):
+                      ffn: str, collect_state: bool, lay=None):
     """→ (x, aux, state): the MoE balance term (float32, zero without an
     MoE), and the layer's cache contribution — attn: {"k","v"} over the S
-    positions seen; mamba: {"conv","h"} final — or None."""
+    positions seen; mamba: {"conv","h"} final — or None.  ``lay``: the
+    dense layer on a rank mesh (module docstring)."""
     state = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
-        y, (k, v) = full_attention(lp["attn"], h, cfg, rope, causal=True)
+        y, (k, v) = full_attention(lp["attn"], h, cfg, rope, causal=True, lay=lay)
         if collect_state:
             state = {"k": k, "v": v}
     elif collect_state:
@@ -134,7 +142,7 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
         if ffn == "moe":
             y, aux = moe_block(lp["moe"], h, cfg)
         else:
-            y = mlp_block(lp["mlp"], h, cfg)
+            y = mlp_block(lp["mlp"], h, cfg, lay)
         x = x + y
     return x, aux, state
 
@@ -178,20 +186,25 @@ def apply_stack_full(
     x: torch.Tensor,
     rope,
     collect_state: bool = False,
+    lay=None,
 ):
     """Full-sequence pass → (x, aux_loss, states_stacked | None).  The
     auxiliary loss is the MoE balance term summed over the layers, zero
     for the stacks without MoE.  With ``cfg.remat``, no state to collect
     and grad enabled, each layer (each period of the hybrid stack) is
     checkpointed: its activations are recomputed in the backward pass
-    instead of kept."""
+    instead of kept.  ``lay``: a dense stack on a rank mesh (module
+    docstring)."""
     n_units, slots = _units(cfg)
+    layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
 
     def unit(up, x, aux):
         states = {}
+        if lay is not None:
+            up = lay.gather_params(up, layer_defs, "layer")
         for key, mixer, ffn in slots:
             lp = up if key is None else up[key]
-            x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state)
+            x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state, lay)
             aux = aux + a
             states[key] = st
         # A uniform stack's unit is one layer, whose state is the unit's.

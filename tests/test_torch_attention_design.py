@@ -120,27 +120,28 @@ def test_split_plan_covers_the_live_keys_and_fills_the_card():
 def _online_tiles(q, k, v, causal, tile):
     """K2's loop over key tiles written out in plain torch: the running row
     max, the accumulator rescaled by e^(m_old - m_new), P rounded to bf16
-    before P.V, the sum of P unrounded, one divide at the end."""
+    before P.V, the sum of P unrounded, one divide at the end; in float64,
+    as the oracle rounds P from float64 values."""
     b, nq, sq, hd = q.shape
     nkv, sk = k.shape[1], k.shape[2]
-    qg = q.reshape(b, nkv, nq // nkv, sq, hd).float()
-    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / (hd ** 0.5)
+    qg = q.reshape(b, nkv, nq // nkv, sq, hd).double()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.double()) / (hd ** 0.5)
     if causal:
         keep = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None]
         s = torch.where(keep, s, ref.NEG_INF)
-    m = torch.full(s.shape[:-1] + (1,), ref.NEG_INF)
-    l = torch.zeros(s.shape[:-1] + (1,))
-    acc = torch.zeros(s.shape[:-1] + (hd,))
+    m = torch.full(s.shape[:-1] + (1,), ref.NEG_INF, dtype=torch.float64)
+    l = torch.zeros(s.shape[:-1] + (1,), dtype=torch.float64)
+    acc = torch.zeros(s.shape[:-1] + (hd,), dtype=torch.float64)
     for lo in range(0, sk, tile):
         st = s[..., lo:lo + tile]
         m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new)
         acc = acc * alpha + torch.einsum(
-            "bkgqs,bksh->bkgqh", p.to(torch.bfloat16).float(), v[:, :, lo:lo + tile].float())
+            "bkgqs,bksh->bkgqh", p.to(torch.bfloat16).double(), v[:, :, lo:lo + tile].double())
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         m = m_new
-    return (acc / l).reshape(b, nq, sq, hd)
+    return (acc / l).reshape(b, nq, sq, hd).float()
 
 
 @pytest.mark.parametrize("case", [
@@ -154,7 +155,7 @@ def _online_tiles(q, k, v, causal, tile):
 def test_running_max_rounding_matches_the_tile_loop(case):
     """``attention_ref(..., p_block=64)``, vectorised, against K2's loop over
     64-key tiles written out: the same bf16 roundings of P, so they differ
-    only by float32 rounding."""
+    only by the order of the sums."""
     b, s, nq, nkv, hd, causal = case
     (_, tq), (_, tk), (_, tv) = _normals(
         s + nq, [(b, nq, s, hd), (b, nkv, s, hd), (b, nkv, s, hd)], round_to=jnp.bfloat16)
