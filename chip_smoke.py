@@ -173,6 +173,27 @@ result lines are printed:
               ``launch/sharded.py::sharded_collectives``; per rank the
               time of each step's first (counted) call and of one repeat,
               wire bytes by kind, memory.
+14. sharded train — mistral-nemo-12b's train step at full width sharded
+              over 4 ranks of the one card (``launch/sharded.py``'s
+              ``"train"`` entry; gloo staged through host memory), the
+              rules from ``launch/dryrun.py::policy_rules``: (2, 2) under
+              the baseline and (1, 4) under ``opt`` (12.2 G parameters:
+              ``ACT_RULES_TRAIN_OPT``); two steps of 2 microbatches of
+              2 × 1 024, parameters and moments donated; then on the same
+              card the one-rank steps from the same seed: (a) 2 layers in
+              float32: each step's loss and grad norm within 1e-4, every
+              leaf of the final m within 1e-3 of its largest |m|; (b) 6
+              layers in bf16 (depth by the memory reckoning in PERF.md):
+              losses within 1e-2 and grad norms within 2 %, then an eval
+              of 2 × 512 through K2 on each rank's heads of the updated
+              shards (6 launches a rank) within 1e-2 of the one-rank
+              model's; K2 launched no time in the train steps (they take
+              the chunked attention, as the reference's train cell does);
+              every rank's collectives equal to ``sharded_collectives(
+              step="train")`` (and ``"loss"`` for the eval); per rank the
+              step times, wire bytes by kind, memory.  Small-DP takes no
+              full-width dense config (all have at least 2e8 parameters):
+              it is held on the CPU only, as the output says.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -184,6 +205,10 @@ builds the kernels and prints only K1's times (fleet shape, the failure
 leg's commonest and widest launch shapes) and K4's, as one JSON line (and
 ``build/kernel_times.json``): copied into two trees, it compares their
 kernels in one call.
+
+    python3 chip_smoke.py --sharded-train
+
+builds the kernels and runs phase 14 alone (its line only).
 """
 from __future__ import annotations
 
@@ -3079,6 +3104,223 @@ def phase_sharded(free_before):
     return out
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+# mistral-nemo-12b's train step at full width on 4 ranks of the one card
+# (``launch/sharded.py``'s "train" entry, gloo, host-staged, as phases 12
+# and 13), the rules from ``launch/dryrun.py::policy_rules`` of each mesh's
+# policy: (2, 2) under the baseline, (1, 4) under ``opt``, which at 12.2 G
+# parameters gives ACT_RULES_TRAIN_OPT.  Depth by the memory reckoning in
+# PERF.md's findings: with the step donating its parameters and optimizer
+# state, a rank holds about 16 B for each of its (L·272 M + 1.34 G) / 4
+# elements (bf16 parameters and a microbatch's gradient, f32 accumulation,
+# m and v), 11.9 GB at 6 layers, and the one-rank comparison 47.6 GB.
+TRAIN_MESHES = (((2, 2), "baseline"), ((1, 4), "opt"))
+TRAIN_SHAPE = (4, 1024)           # the batch
+TRAIN_ACCUM = 2                   # microbatches of 2 × 1 024
+TRAIN_LAYERS = dict(bf16=6, f32=2)
+TRAIN_STEPS = 2
+TRAIN_EVAL_SHAPE = (2, 512)       # the eval through K2 after the bf16 steps
+TRAIN_LIMIT = 900                 # seconds for the multi-rank run
+# Gates, fixed before the first run.  f32 at 2 layers against the one-rank
+# step: the same sums cut over heads, columns and ranks, added in another
+# order: the loss within TRAIN_TOL, the grad norm within TRAIN_TOL of
+# itself, every leaf of m within TRAIN_M_REL of the leaf's largest |m|.
+TRAIN_TOL = 1e-4
+TRAIN_M_REL = 1e-3
+# bf16 at 6 layers: the ranks sum bf16 gradient shares in another order
+# than one rank's products: each step's loss within TRAIN_BF16_LOSS, its
+# grad norm within TRAIN_BF16_NORM of itself; the eval through K2 on the
+# updated shards within TRAIN_BF16_LOSS of the one-rank model's.
+TRAIN_BF16_LOSS = 1e-2
+TRAIN_BF16_NORM = 2e-2
+
+
+def _train_reference(cfg, tokens, eval_tokens, steps, accum, dev):
+    """The one-rank train step on the card from SEED's parameters, donated
+    as the ranks' are → losses, grad norms, the final state's m (on the
+    card) and, with ``eval_tokens``, the eval loss through K2 on the
+    updated parameters; seconds."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    opt = AdamW(lr=warmup_cosine(3e-4, 2000, 100_000))
+    state = opt.init(params)
+    step = make_train_step(model, opt, accum=accum, donate=True)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    out = dict(loss=[], grad_norm=[])
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(steps):
+        params, state, metrics = step(params, state, batch)
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    if eval_tokens is not None:
+        del state
+        ev = Model(cfg.with_(attn_impl="pallas"))
+        with torch.no_grad():
+            loss, _ = ev.loss(params, {"tokens": torch.as_tensor(eval_tokens, device=dev).long()})
+        out["eval_loss"] = float(loss)
+    else:
+        out["m"] = state.m
+    del params
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _m_errors(ranks, mesh_shape, m_ref, param_rules, cfg):
+    """Per leaf, the largest |error| of any rank's block of m against its
+    block of the one-rank ``m_ref`` (on the card), over the leaf's largest
+    |m|."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+
+    axes = Model(cfg).axes()
+    out = {}
+    for rank, r in enumerate(ranks):
+        mesh = Mesh(("data", "model"), mesh_shape, None, rank, {})
+        want = dict(flatten(shard_params(m_ref, axes, mesh, mesh.coords, param_rules)))
+        for path, got in flatten(r["train"]["m"]):
+            ref = want[path]
+            err = float((got.to(ref.device) - ref).abs().max()) / max(float(ref.abs().max()),
+                                                                      1e-30)
+            out["/".join(path)] = max(out.get("/".join(path), 0.0), err)
+    return out
+
+
+def phase_sharded_train(free_before):
+    """Phase 14: mistral-nemo-12b's train step sharded over 4 ranks of one
+    card."""
+    import torch
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.sharded import sharded_collectives
+
+    t0 = time.perf_counter()
+    released = [_card_released(free_before)]
+    cuda = torch.device("cuda", 0)
+    arch = SERVE["arch"]
+    cfg = get_config(arch)
+    rng = np.random.default_rng(SEED + 14)
+    tokens = rng.integers(0, cfg.vocab_size, TRAIN_SHAPE)
+    eval_tokens = rng.integers(0, cfg.vocab_size, TRAIN_EVAL_SHAPE)
+    dense = {a: get_config(a).param_count() for a in ARCH_NAMES
+             if get_config(a).family == "dense"}
+    depth = {k: dict(n_layers=n) for k, n in TRAIN_LAYERS.items()}
+    depth["f32"].update(param_dtype="float32", compute_dtype="float32")
+    cases = []
+    for key in ("f32", "bf16"):
+        for mesh, policy in TRAIN_MESHES:
+            case = dict(mesh=mesh, policy=policy, cfg=depth[key],
+                        train=dict(tokens=tokens, accum=TRAIN_ACCUM, steps=TRAIN_STEPS,
+                                   host=("m",) if key == "f32" else ()))
+            if key == "bf16":
+                case["loss"] = dict(tokens=eval_tokens, cfg=dict(attn_impl="pallas"))
+            cases.append(case)
+    t1 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run", 4,
+                    dict(device="cuda:0", arch=arch, seed=SEED, cases=cases),
+                    timeout_s=TRAIN_LIMIT,
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t1
+    released.append(_card_released(free_before))
+
+    out = dict(arch=arch, batch=list(TRAIN_SHAPE), accum=TRAIN_ACCUM, layers=TRAIN_LAYERS,
+               steps=TRAIN_STEPS, eval_batch=list(TRAIN_EVAL_SHAPE), ranks_s=ranks_s,
+               small_dp=("held on the CPU only (tests/test_torch_sharded_train.py): every "
+                         "full-width dense config has at least 2e8 parameters, so opt "
+                         "never gives small-DP at full width"),
+               dense_param_counts=dense)
+    fails = []
+    refs = {}
+    for key in ("f32", "bf16"):
+        c = cfg.with_(**depth[key])
+        refs[key] = _train_reference(c, tokens, eval_tokens if key == "bf16" else None,
+                                     TRAIN_STEPS, TRAIN_ACCUM, cuda)
+        for i, case in enumerate(cases):
+            if case["cfg"] is not depth[key]:
+                continue
+            ranks = [r[i] for r in res]
+            label = f"{key}_{case['mesh'][0]}x{case['mesh'][1]}_{case['policy']}"
+            mesh_shape = dict(zip(("data", "model"), case["mesh"]))
+            r0 = ranks[0]
+            size = 4 if key == "f32" else 2
+            want = sharded_collectives(c, mesh_shape, r0["rules"], *TRAIN_SHAPE, size, size,
+                                       "train", TRAIN_ACCUM, r0["param_rules"])
+            if any(r["train"]["ops"] != want for r in ranks):
+                fails.append(f"{label}: a rank's train ops differ from the formula")
+            entry = dict(
+                rules=r0["rules"], param_rules=r0["param_rules"],
+                losses=[r["train"]["loss"] for r in ranks],
+                grad_norms=[r["train"]["grad_norm"] for r in ranks],
+                one_rank=dict(loss=refs[key]["loss"], grad_norm=refs[key]["grad_norm"],
+                              max_memory_allocated=refs[key]["max_memory_allocated"],
+                              seconds=refs[key]["seconds"]),
+                step_ms=[r["train"]["ms"] for r in ranks],
+                train_k2_launches=[r["train"]["k2_launches"] for r in ranks],
+                collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+                init_s=[r["init_s"] for r in ranks],
+                params_allocated=[r["params_allocated"] for r in ranks],
+                max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+                route=r0["route"])
+            loss_err = max(abs(a - b) for r in ranks
+                           for a, b in zip(r["train"]["loss"], refs[key]["loss"]))
+            norm_err = max(abs(a - b) / b for r in ranks
+                           for a, b in zip(r["train"]["grad_norm"], refs[key]["grad_norm"]))
+            entry.update(loss_err=loss_err, grad_norm_rel_err=norm_err)
+            finite = all(np.isfinite(r["train"]["loss"] + r["train"]["grad_norm"]).all()
+                         for r in ranks)
+            if any(r["train"]["k2_launches"] for r in ranks):
+                fails.append(f"{label}: K2 launched {entry['train_k2_launches']} times in the "
+                             f"train steps, which take the chunked attention")
+            if key == "f32":
+                m_err = _m_errors(ranks, case["mesh"], refs[key]["m"], r0["param_rules"], c)
+                entry.update(m_rel_err=m_err, tolerance=dict(loss=TRAIN_TOL, grad_norm=TRAIN_TOL,
+                                                            m=TRAIN_M_REL))
+                if not (loss_err <= TRAIN_TOL and norm_err <= TRAIN_TOL
+                        and max(m_err.values()) <= TRAIN_M_REL and finite):
+                    fails.append(f"(a) {label}: loss {loss_err}, grad norm {norm_err}, m "
+                                 f"{max(m_err.values())} against one rank")
+            else:
+                ev = [r["loss"]["loss"] for r in ranks]
+                k2 = [r["loss"]["k2_launches"] for r in ranks]
+                eval_err = max(abs(e - refs[key]["eval_loss"]) for e in ev)
+                want_ev = sharded_collectives(c, mesh_shape, r0["rules"], *TRAIN_EVAL_SHAPE,
+                                              size, size, "loss", 1, r0["param_rules"])
+                if any(r["loss"]["ops"] != want_ev for r in ranks):
+                    fails.append(f"{label}: a rank's eval ops differ from the formula")
+                entry.update(eval_losses=ev, eval_one_rank=refs[key]["eval_loss"],
+                             eval_err=eval_err, eval_ms=[r["loss"]["ms"] for r in ranks],
+                             k2_launches=k2,
+                             tolerance=dict(loss=TRAIN_BF16_LOSS, grad_norm=TRAIN_BF16_NORM))
+                if not (loss_err <= TRAIN_BF16_LOSS and norm_err <= TRAIN_BF16_NORM
+                        and eval_err <= TRAIN_BF16_LOSS and finite):
+                    fails.append(f"(b) {label}: loss {loss_err}, grad norm {norm_err}, eval "
+                                 f"{eval_err} against one rank")
+                if any(k != c.n_layers for k in k2):
+                    fails.append(f"(b) {label}: K2 launched {k2} times an eval of "
+                                 f"{c.n_layers} layers")
+            out[label] = entry
+        refs[key].pop("m", None)
+        _free()
+    out["phase_s"] = time.perf_counter() - t0
+    out["released_s"] = released
+    log("sharded_train", **out)
+    if fails:
+        raise AssertionError(f"phase 14: {fails}")
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -3137,8 +3379,12 @@ def main() -> int:
 
     if sys.argv[1:] == ["--kernel-times"]:
         return kernel_times()
+    if sys.argv[1:] == ["--sharded-train"]:
+        phase_device()
+        phase_sharded_train(torch.cuda.mem_get_info()[0])
+        return 0
     if sys.argv[1:]:
-        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train]")
     name, smi = phase_device()
     timing = phase_kernels()
     main_cuda = phase_main_path()
@@ -3152,6 +3398,7 @@ def main() -> int:
     phase_cost()
     expert = phase_expert()
     sharded = phase_sharded(expert["free_bytes"])
+    sharded_train = phase_sharded_train(expert["free_bytes"])
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -3184,7 +3431,11 @@ def main() -> int:
     }, _attention_entry("flash_attention", attn["flash_attention"], serve["k2_launches"],
                         **_k2_family_launches(models),
                         launches_a2a_serve_path=expert["moe"]["k2_launches"][0],
-                        launches_sharded_serve_path=sharded["bf16_2x2"]["k2_launches"][0]),
+                        launches_sharded_serve_path=sharded["bf16_2x2"]["k2_launches"][0],
+                        launches_sharded_train_path=sharded_train[
+                            "bf16_2x2_baseline"]["train_k2_launches"][0],
+                        launches_sharded_train_eval=sharded_train[
+                            "bf16_2x2_baseline"]["k2_launches"][0]),
         _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"]), {
         "name": "mamba_scan",
         "route": "cuda",

@@ -140,15 +140,17 @@ def shard_moe_params(params, mesh, coords):
     return walk(params, "router" in params)
 
 
-def shard_params(params, axes, mesh, coords):
+def shard_params(params, axes, mesh, coords, param_rules=None):
     """A rank's blocks of global parameters (the reference's numpy leaves,
     as ``params_from_jax`` takes them, or tensors): every leaf cut by
     ``spec_for`` of its logical axes (``axes``, the same tree of tuples,
-    ``Model.axes()``) under ``PARAM_RULES`` at ``coords`` (axis → index)
-    of ``mesh`` (its ``shape``), as the reference's ``param_shardings``
-    places it.  Leaves are views."""
+    ``Model.axes()``) under ``param_rules`` (default ``PARAM_RULES``; the
+    value ``launch/dryrun.py::policy_rules`` returns) at ``coords`` (axis
+    → index) of ``mesh`` (its ``shape``), as the reference's
+    ``param_shardings`` places it.  Leaves are views."""
     from .distributed.sharding import rank_index
 
     if isinstance(params, dict):
-        return {k: shard_params(v, axes[k], mesh, coords) for k, v in params.items()}
-    return params[rank_index(tuple(params.shape), axes, mesh, coords)]
+        return {k: shard_params(v, axes[k], mesh, coords, param_rules)
+                for k, v in params.items()}
+    return params[rank_index(tuple(params.shape), axes, mesh, coords, param_rules)]

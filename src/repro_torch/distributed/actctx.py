@@ -1,25 +1,37 @@
 """Activation-sharding context.
 
 Model code is mesh-agnostic; a launcher establishes a context
-(``activation_sharding(mesh, rules)``), and ``constrain(x, logical_axes)``
-resolves a spec for ``x`` under the active rules, with the reference's
-``only_if`` and ``require_axis`` rules (:func:`resolve`).  With no context
-active, where the rules resolve nothing, or on a mesh of one device, it
-returns ``x`` unchanged.  Off a rank mesh the port places no tensor
-across devices by a spec, so a spec that resolves on a larger mesh
-raises.
+(``activation_sharding(mesh, rules, param_rules)``), and
+``constrain(x, logical_axes)`` resolves a spec for ``x`` under the active
+rules, with the reference's ``only_if`` and ``require_axis`` rules
+(:func:`resolve`).  With no context active, where the rules resolve
+nothing, or on a mesh of one device, it returns ``x`` unchanged.  Off a
+rank mesh the port places no tensor across devices by a spec, so a spec
+that resolves on a larger mesh raises.
 
 On a rank mesh (``launch/mesh.py::_make_mesh``) each rank holds its block
 of every tensor, and the layers move the blocks themselves.  Two readers
 act on the context there.  The dense model (``models/model.py``) takes
 its sharded path under the rules' layout of the residual stream
 (:func:`rank_layout`: the batch over the rules' ``batch`` axes, the
-sequence over ``model``), each parameter a block by ``PARAM_RULES``; the
-:class:`RankLayout` it hands the layers issues that path's collectives.
-The MoE block with ``moe_impl="a2a"`` takes the expert-parallel dispatch,
-which cuts its input by the rules' ``batch`` and ``seq`` entries itself
+sequence over ``model`` where the rules put it there), each parameter a
+block by the context's ``param_rules`` (``PARAM_RULES``, or the small-DP
+policy's ``{}``: every leaf whole); the :class:`RankLayout` it hands the
+layers issues that path's collectives.  The MoE block with
+``moe_impl="a2a"`` takes the expert-parallel dispatch, which cuts its
+input by the rules' ``batch`` and ``seq`` entries itself
 (``models/moe.py::a2a_layout``).  ``constrain`` on a rank mesh returns
 ``x``: the block it is given already lies where its spec says.
+
+A train step on a rank mesh ends its backward pass with each leaf's
+gradient as shares (``distributed/collectives.py``'s convention): the
+gathers' transposes have already summed them over the axes the leaf is
+split over.  :func:`sum_replicated` sums each leaf over the axes it is
+held alike along — ``pod`` always, every axis under small-DP, ``model``
+for a leaf not split over it (the norms, kv heads that do not divide the
+axis) — GSPMD's gradient sync, after which each rank holds its block of
+the global gradient; :func:`whole_sq_sums` gives the optimizer the whole
+leaves' sums of squares, each counted once.
 """
 from __future__ import annotations
 
@@ -36,8 +48,11 @@ _STATE: list = []
 
 
 @contextmanager
-def activation_sharding(mesh, rules: Dict[str, Any]):
-    _STATE.append((mesh, dict(rules)))
+def activation_sharding(mesh, rules: Dict[str, Any], param_rules: Optional[Dict[str, Any]] = None):
+    """``rules``: the activation rules; ``param_rules``: where the
+    parameters lie on a rank mesh (default ``PARAM_RULES``), the second
+    value of ``launch/dryrun.py::policy_rules``."""
+    _STATE.append((mesh, dict(rules), PARAM_RULES if param_rules is None else dict(param_rules)))
     try:
         yield
     finally:
@@ -45,7 +60,20 @@ def activation_sharding(mesh, rules: Dict[str, Any]):
 
 
 def active() -> Optional[Tuple[Any, Dict[str, Any]]]:
-    return _STATE[-1] if _STATE else None
+    """(mesh, activation rules) of the active context, or None."""
+    return _STATE[-1][:2] if _STATE else None
+
+
+def rank_params() -> Optional[Tuple[Any, Dict[str, Any]]]:
+    """(mesh, parameter rules) of the active context where its mesh is a
+    rank mesh of more than one rank, else None."""
+    if not _STATE or not _on_ranks(_STATE[-1][0]):
+        return None
+    return _STATE[-1][0], _STATE[-1][2]
+
+
+def _on_ranks(mesh) -> bool:
+    return getattr(mesh, "is_rank_mesh", False) and _n_devices(mesh) > 1
 
 
 def _n_devices(mesh) -> int:
@@ -102,11 +130,12 @@ class RankLayout:
     mesh axes ``batch`` (``()``: every rank holds the whole batch) and,
     when ``seq_sharded``, along the sequence over ``model``: this rank
     holds rows ``b0:b0 + b_loc`` and positions ``s0:s0 + s_loc``.  Each
-    parameter is this rank's block by ``PARAM_RULES``: heads, kv heads,
-    ``d_ff`` and the vocabulary split over ``model`` where they divide it
-    (the layers read which from the blocks' shapes); ``d_model`` over
-    ``data`` (FSDP), gathered by :meth:`gather_params` just before use.
-    Every method issues its collectives through
+    parameter is this rank's block by ``param_rules``: under
+    ``PARAM_RULES`` heads, kv heads, ``d_ff`` and the vocabulary split
+    over ``model`` where they divide it (the layers read which from the
+    blocks' shapes), ``d_model`` over ``data`` (FSDP), gathered by
+    :meth:`gather_params` just before use; under the small-DP policy's
+    ``{}`` every leaf whole.  Every method issues its collectives through
     ``distributed/collectives.py``, counted under ``path``."""
 
     mesh: Any
@@ -114,6 +143,7 @@ class RankLayout:
     seq_sharded: bool
     b: int
     s: int
+    param_rules: Dict[str, Any]
 
     @property
     def n_model(self) -> int:
@@ -158,7 +188,7 @@ class RankLayout:
         moved, axes = [], None
         for p, leaf in zip(paths, leaves):
             decl = _leaf(defs, p)
-            spec = spec_for(decl.shape, decl.axes, self.mesh, PARAM_RULES)
+            spec = spec_for(decl.shape, decl.axes, self.mesh, self.param_rules)
             split = [(i, e) for i, e in enumerate(spec) if e not in (None, "model")]
             if not split:
                 continue
@@ -219,15 +249,73 @@ def residual_axes(b: int, s: int, d: int, mesh, rules: Dict[str, Any]
 def rank_layout(b: int, s: int, d: int) -> Optional[RankLayout]:
     """The layout of a ``[b, s, d]`` residual stream under the active
     context, where its mesh is a rank mesh of more than one rank (else
-    None), by :func:`residual_axes`.  Raises for rules that split the
-    batch over ``model`` or the sequence over another axis: the other
-    policies' layouts are not ported."""
-    ctx = active()
-    if ctx is None or not getattr(ctx[0], "is_rank_mesh", False) or _n_devices(ctx[0]) == 1:
+    None), by :func:`residual_axes`: the baseline's and ``opt``'s (the
+    batch over ``data``, or ``("pod", "data")``, the sequence over
+    ``model``) and small-DP's (the batch over every axis it divides, the
+    sequence whole, every leaf whole).  Raises for the sequence over
+    another axis than ``model``, and for the batch over ``model`` while the
+    parameter rules split leaves over it."""
+    if not _STATE or not _on_ranks(_STATE[-1][0]):
         return None
-    mesh, rules = ctx
+    mesh, rules, param_rules = _STATE[-1]
     batch, seq = residual_axes(b, s, d, mesh, rules)
-    if "model" in batch or seq not in (None, "model"):
-        raise NotImplementedError(f"the sharded model with the batch over {batch} and the "
-                                  f"sequence over {seq}")
-    return RankLayout(mesh, batch, seq == "model", b, s)
+    if seq not in (None, "model") or ("model" in batch and "model" in param_rules.values()):
+        raise NotImplementedError(f"the sharded model with the batch over {batch}, the "
+                                  f"sequence over {seq} and parameters by {param_rules}")
+    return RankLayout(mesh, batch, seq == "model", b, s, param_rules)
+
+
+def replicated_axes(decl, mesh, param_rules: Dict[str, Any]) -> Tuple[str, ...]:
+    """The axes of ``mesh`` (of more than one rank, in mesh order) along
+    which every rank holds the same block of the leaf ``decl`` declares:
+    those its spec under ``param_rules`` does not split it over."""
+    split = set()
+    for entry in spec_for(decl.shape, decl.axes, mesh, param_rules):
+        if entry is not None:
+            split.update(entry if isinstance(entry, tuple) else (entry,))
+    return tuple(a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in split)
+
+
+def sum_replicated(grads, defs, mesh, param_rules: Dict[str, Any], path: str = "grads"):
+    """``grads`` (this rank's shares of its blocks, declared by ``defs``)
+    with each leaf summed over its :func:`replicated_axes`: one ``psum``
+    for each set of axes, of the leaves that share it flattened together,
+    the sets in the order their first leaf comes in ``flatten``."""
+    from ..models.params import flatten, unflatten
+    from .collectives import psum
+
+    paths, leaves = zip(*flatten(grads))
+    decls = dict(flatten(defs))
+    sets: Dict[Tuple[str, ...], list] = {}
+    for i, p in enumerate(paths):
+        axes = replicated_axes(decls[p], mesh, param_rules)
+        if axes:
+            sets.setdefault(axes, []).append(i)
+    out = list(leaves)
+    for axes, idx in sets.items():
+        flat = psum(torch.cat([out[i].reshape(-1) for i in idx]), mesh, axes, path)
+        at = 0
+        for i in idx:
+            n = out[i].numel()
+            out[i] = flat[at:at + n].view(out[i].shape).to(out[i].dtype)
+            at += n
+    return unflatten(paths, out)
+
+
+def whole_sq_sums(sq: torch.Tensor, defs, mesh, param_rules: Dict[str, Any],
+                  path: str = "grad_norm") -> torch.Tensor:
+    """``sq``, the sums of squares of this rank's blocks of each leaf (a
+    vector in ``flatten`` order of ``defs``), → those of the whole leaves:
+    each leaf counted on the ranks at coordinate 0 of its
+    :func:`replicated_axes`, then one ``psum`` over the mesh, so a block
+    that several ranks hold counts once.  Where no leaf is split, ``sq``
+    already holds them."""
+    from ..models.params import flatten
+    from .collectives import psum
+
+    axes = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1)
+    reps = [replicated_axes(decl, mesh, param_rules) for _, decl in flatten(defs)]
+    if all(r == axes for r in reps):
+        return sq
+    keep = torch.tensor([all(mesh.coords[a] == 0 for a in r) for r in reps], device=sq.device)
+    return psum(torch.where(keep, sq, 0.0), mesh, axes, path)

@@ -9,9 +9,10 @@ each of which joins a process group through a file store in a fresh
 temporary directory (``init_process_group`` with a 60 s timeout), calls
 ``module:function`` on the payload (written once with ``torch.save``) and
 saves what it returns.  The caller gets the results in rank order.  The
-first rank to exit non-zero, or the limit, ends every rank still running,
-and ``run_ranks`` raises with the last lines of every failed rank's error
-output: a rank that fails never leaves the others waiting in a collective.  Each rank's
+first rank to exit non-zero (after the others are given ``SETTLE_S`` to
+exit too), or the limit, ends every rank still running, and ``run_ranks``
+raises with the last lines of every failed rank's error output: a rank
+that fails never leaves the others waiting in a collective.  Each rank's
 standard output and error go to files in the temporary directory, which
 is removed afterwards.
 """
@@ -30,6 +31,9 @@ from typing import Any, List, Optional
 
 #: ``init_process_group``'s timeout, and so the longest a collective waits.
 GROUP_TIMEOUT = timedelta(seconds=60)
+#: After the first rank exits non-zero, the longest the others are given to
+#: exit before they are ended and the failure is reported.
+SETTLE_S = 10.0
 
 
 class RankFailure(RuntimeError):
@@ -74,7 +78,11 @@ def run_ranks(target: str, world: int, payload: Any, *, backend: str = "gloo",
             codes = [p.poll() for p in procs]
             bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
             if bad:
-                time.sleep(0.5)    # the others' errors, if they fail as well
+                # The others' errors: a rank's failure fails its peers in their next
+                # collective, and the rank that failed first need not exit first.
+                settle = time.monotonic() + SETTLE_S
+                while any(p.poll() is None for p in procs) and time.monotonic() < settle:
+                    time.sleep(0.05)
                 codes = [p.poll() for p in procs]
                 failure = "\n".join(
                     f"rank {r} of {world} ({target}, {backend}) exited {codes[r]}:\n"

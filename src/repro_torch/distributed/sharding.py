@@ -163,17 +163,21 @@ def block_index(shape: Tuple[int, ...], spec: Spec, mesh_shape: Dict[str, int],
 
 
 def rank_index(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...], mesh: Mesh,
-               coords: Dict[str, int]) -> Tuple[slice, ...]:
+               coords: Dict[str, int], param_rules=None) -> Tuple[slice, ...]:
     """A rank's slices of a parameter with logical ``axes``, by
-    :func:`spec_for` under :data:`PARAM_RULES`."""
-    return block_index(shape, spec_for(shape, axes, mesh, PARAM_RULES), mesh.shape, coords)
+    :func:`spec_for` under ``param_rules`` (default :data:`PARAM_RULES`;
+    the small-DP policy's :data:`PARAM_RULES_SMALL_DP` keeps every leaf
+    whole)."""
+    rules = PARAM_RULES if param_rules is None else param_rules
+    return block_index(shape, spec_for(shape, axes, mesh, rules), mesh.shape, coords)
 
 
-def rank_shard(mesh: Mesh):
+def rank_shard(mesh: Mesh, param_rules=None):
     """For ``init_params(shard=...)``: every leaf → this rank's slices of
-    it (:func:`rank_index`) on the rank mesh ``mesh``."""
+    it (:func:`rank_index` under ``param_rules``) on the rank mesh
+    ``mesh``."""
     coords = mesh.coords
-    return lambda path, p: rank_index(p.shape, p.axes, mesh, coords)
+    return lambda path, p: rank_index(p.shape, p.axes, mesh, coords, param_rules)
 
 
 def param_shardings(defs: Tree, mesh: Mesh, rules=None) -> Tree:

@@ -20,8 +20,8 @@ JSON record under ``artifacts/dryrun_torch/`` holding:
 * ``collectives`` — null, with ``collectives_note`` saying why: a
   production cell's collectives come from the sharded model (parameters
   and activations placed by ``distributed/sharding.py``'s rules).  The
-  port runs a dense model's prefill and loss sharded over the ranks of a
-  rank mesh (``launch/sharded.py``, counted by
+  port runs a dense model's prefill, loss and train step sharded over the
+  ranks of a rank mesh (``launch/sharded.py``, counted by
   ``hlo_analysis.counting_collectives``), but the dry run has no ranks and
   counts none yet; the other step kinds and families are not sharded.  A
   partial count would pass for the whole, so none is written, and
@@ -84,9 +84,10 @@ ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch
 GIB = 2 ** 30
 
 
-def policy_rules(arch: str, shape: ShapeSpec, mesh, policy: str):
-    """→ (cfg transform, param rules, activation rules) for a policy."""
-    cfg = get_config(arch)
+def policy_rules(arch: str, shape: ShapeSpec, mesh, policy: str, smoke: bool = False):
+    """→ (cfg transform, param rules, activation rules) for a policy.
+    ``smoke``: decide by (and transform) the arch's smoke configuration."""
+    cfg = get_config(arch, smoke=smoke)
     act = dict(ACT_RULES_DECODE if shape.kind == "decode" else ACT_RULES_TRAIN)
     param_rules = None  # PARAM_RULES default
     if policy == "opt":
@@ -267,9 +268,9 @@ def run_cell(
         record["collectives"] = None
         record["collectives_note"] = (
             "not counted: this cell's collectives come from the sharded model "
-            "(distributed/sharding.py's rules across ranks); a dense model's prefill and "
-            "loss run sharded on a rank mesh (launch/sharded.py), but the dry run has no "
-            "ranks and does not count their collectives yet")
+            "(distributed/sharding.py's rules across ranks); a dense model's prefill, loss "
+            "and train step run sharded on a rank mesh (launch/sharded.py), but the dry run "
+            "has no ranks and does not count their collectives yet")
         record["chip"] = H100_SXM.name
         record["roofline"] = roofline_terms(acct["flops"], acct["bytes"], CollectiveReport(),
                                             chips, acct["model_flops"], chip=H100_SXM).to_dict()

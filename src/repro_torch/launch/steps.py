@@ -6,6 +6,16 @@ over the flattened parameter tree: each parameter enters the loss as a
 detached leaf that requires grad, so the caller's tensors get no
 ``.grad`` and no graph outlives the step.  The other steps run without
 autograd.
+
+Under a rank mesh's ``activation_sharding`` context the train step runs
+sharded (a dense model): ``params`` and the optimizer state are this
+rank's blocks (by the context's parameter rules), ``batch`` the whole
+global batch on every rank.  Each microbatch is the reference's (the
+batch reshaped to ``(accum, B / accum, ...)``), of which ``Model.loss``
+takes this rank's rows; the float32 accumulation buffer holds this rank's
+blocks.  After the last microbatch each leaf is summed over the axes it
+is held alike along (``actctx.sum_replicated``), and AdamW takes the
+whole tree's norm (``actctx.whole_sq_sums``) and updates the blocks.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ from typing import Dict
 
 import torch
 
+from ..distributed import actctx
 from ..models.model import Model
 from ..models.params import flatten, unflatten
 from ..optim.adamw import AdamW, AdamWState
@@ -23,12 +34,16 @@ def make_train_step(
     optimizer: AdamW,
     accum: int = 1,
     accum_dtype=torch.float32,
+    donate: bool = False,
 ):
     """→ train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``accum_dtype`` controls the gradient-accumulation buffer: f32 default;
     bf16 halves it for memory-edge cells (≥8 summands at loss scale ~1
     keeps the rounding error well under the gradient noise floor).
+    ``donate``: the step updates ``params`` and ``opt_state`` in place
+    (``AdamW.update``), as the reference's cell donates them, so a step
+    holds one copy of each.
     """
 
     def grad_fn(params, mb):
@@ -49,17 +64,23 @@ def make_train_step(
                 mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
                       for k, v in batch.items()}
                 l, g = grad_fn(params, mb)
-                g = {path: leaf.to(accum_dtype) for path, leaf in flatten(g)}
                 if gsum is None:
-                    gsum, lsum = g, l.float()
+                    gsum = {path: leaf.to(accum_dtype) for path, leaf in flatten(g)}
+                    lsum = l.float()
                 else:
-                    for path in gsum:
-                        gsum[path] = gsum[path] + g[path]
+                    for path, leaf in flatten(g):
+                        gsum[path].add_(leaf)
                     lsum = lsum + l
-            grads = unflatten(list(gsum), [g / accum for g in gsum.values()])
+                del g
+            grads = unflatten(list(gsum), [g.div_(accum) for g in gsum.values()])
             loss = lsum / accum
 
-        new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params)
+        sq_total = None
+        if (ranks := actctx.rank_params()) is not None:
+            defs = model.defs()
+            grads = actctx.sum_replicated(grads, defs, *ranks)
+            sq_total = lambda sq: actctx.whole_sq_sums(sq, defs, *ranks)  # noqa: E731
+        new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params, sq_total, donate)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

@@ -146,7 +146,9 @@ def main(argv=None) -> dict:
             step0, (params, opt_state) = ckpt.restore((params, opt_state))
             print(f"resumed from step {step0}", flush=True)
 
-    train_step = make_train_step(model, opt, accum=args.accum)
+    # params and opt_state are updated in place, as the reference's jitted
+    # step donates them: a step holds one copy of each.
+    train_step = make_train_step(model, opt, accum=args.accum, donate=True)
 
     # --- supervision ------------------------------------------------------------
     monitor = HeartbeatMonitor(hosts, grace_s=60.0)

@@ -17,8 +17,9 @@ keeps a length-1 sequence axis, ``[B, 1, V]``).
 Under an ``activation_sharding`` context whose mesh is a rank mesh of more
 than one rank, a dense model's ``loss`` and ``prefill`` run sharded
 (``distributed/actctx.py::rank_layout``), as the reference's partitioned
-cell under the baseline policy: ``params`` are this rank's blocks by
-``PARAM_RULES`` (``Model.init(shard=sharding.rank_shard(mesh))``,
+cell under the baseline, ``opt`` and small-DP policies: ``params`` are
+this rank's blocks by the context's parameter rules
+(``Model.init(shard=sharding.rank_shard(mesh, param_rules))``,
 ``convert.shard_params``), ``batch`` the whole batch on every rank.  The
 embedding is a vocab-parallel lookup (rows outside this rank's block of
 the vocabulary give 0), reduce-scattered into the residual stream's block
@@ -30,8 +31,13 @@ this rank's heads and ``d_ff`` columns; the head is vocab-parallel.
 ``loss`` takes a vocab-parallel cross-entropy — each rank's log-sum-exp
 and gold logit over its block of the vocabulary, gathered over ``model``
 and combined — and returns the mean over every position of the global
-batch, the same on every rank.  Forward only: under autograd it raises
-(the sharded train step is not ported).
+batch, the same on every rank.  Under autograd the loss is the root of
+the backward pass through the collectives' transposes
+(``distributed/collectives.py``): each leaf's gradient comes back as this
+rank's share, which ``launch/steps.py::make_train_step`` sums over the
+axes the leaf is held alike along.  A tied head, and every family but the
+dense one, raise under autograd on a rank mesh (their sharded train step
+is not ported).
 """
 from __future__ import annotations
 
@@ -101,13 +107,15 @@ class Model:
     def _layout(self, batch: Dict[str, torch.Tensor]):
         """The rank layout of this batch under the active context (a dense
         model on a rank mesh), or None."""
-        if self.cfg.family != "dense":
-            return None
-        from ..distributed.actctx import rank_layout
+        from ..distributed.actctx import rank_layout, rank_params
 
+        if self.cfg.family != "dense":
+            if torch.is_grad_enabled() and rank_params() is not None:
+                raise NotImplementedError(f"the {self.cfg.family} family's sharded train step")
+            return None
         lay = rank_layout(*batch["tokens"].shape, self.cfg.d_model)
-        if lay is not None and (torch.is_grad_enabled() or self.cfg.tie_embeddings):
-            raise NotImplementedError("the sharded model runs forward only, with an untied head")
+        if lay is not None and self.cfg.tie_embeddings:
+            raise NotImplementedError("the sharded model with a tied head")
         return lay
 
     def _rope(self, positions: torch.Tensor):
@@ -136,13 +144,13 @@ class Model:
         "aux"})."""
         cfg = self.cfg
         tokens, mask = batch["tokens"], batch.get("loss_mask")
-        lay = None
+        lay = self._layout(batch)
         if cfg.family == "encdec":
             enc = ed.encode(params, batch["frames"], cfg)
             logits, _ = ed.decode_full(params, tokens, enc, cfg)
             aux = torch.zeros((), dtype=torch.float32, device=logits.device)
             n_prefix = 0
-        elif (lay := self._layout(batch)) is not None:
+        elif lay is not None:
             logz, gold, aux = self._sharded_nll(params, batch, lay)
             mask = None if mask is None else lay.rows(mask)
         else:
@@ -167,6 +175,10 @@ class Model:
 
                 sums = psum(sums, lay.mesh, lay.batch, "loss/mean")
             ce = sums[0] / torch.clamp(sums[1], min=1.0)
+            if lay is not None:     # every rank holds it: each seeds a share
+                from ..distributed.collectives import seed_shares
+
+                ce = seed_shares(ce, lay.mesh)
         total = ce + cfg.aux_loss_weight * aux
         return total, {"ce": ce, "aux": aux}
 

@@ -22,16 +22,26 @@ On a rank mesh a dense stack runs sharded (``lay``, the model's
 (the reference's ``constrain(x, ("batch", "seq", None))`` at each layer),
 each layer's weights are gathered along ``d_model`` by one collective just
 before the layer runs and dropped after it, and the layer runs attention
-and MLP on this rank's heads and ``d_ff`` columns.
+and MLP on this rank's heads and ``d_ff`` columns.  The gather lies
+inside the checkpointed unit, so a training pass under ``cfg.remat``
+gathers each layer's weights again when the backward pass recomputes the
+layer, and drops them after, as the reference's ZeRO-3 under
+``jax.checkpoint`` does: a rank never holds more than one layer's
+gathered weights.  The recomputation stops at the layer's last saved
+tensor (``torch.utils.checkpoint``'s early stop, on by default), so it
+issues the layer's collectives up to its MLP's input gather, each counted
+as the backward pass's (``collectives.recomputing``).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.collectives import recomputing
 from .attention import attn_defs, decode_attention, full_attention
 from .layers import mlp_block, mlp_defs, rms_norm
 from .moe import moe_block, moe_defs
@@ -216,13 +226,20 @@ def apply_stack_full(
     for ui in range(n_units):
         up = _index_tree(stack, ui)
         if remat:
-            x, aux, st = checkpoint(unit, up, x, aux, use_reentrant=False)
+            x, aux, st = checkpoint(unit, up, x, aux, use_reentrant=False,
+                                    context_fn=_remat_contexts)
         else:
             x, aux, st = unit(up, x, aux)
         states.append(st)
     if not collect_state:
         return x, aux, None
     return x, aux, _stack_trees(states)
+
+
+def _remat_contexts():
+    """A checkpointed unit's contexts: none for its forward, and
+    ``collectives.recomputing`` for its recomputation."""
+    return nullcontext(), recomputing()
 
 
 def apply_stack_decode(

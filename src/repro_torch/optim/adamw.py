@@ -56,15 +56,23 @@ class AdamW:
         return torch.full((), self.lr, dtype=torch.float32, device=count.device)
 
     def update(
-        self, grads: Tree, state: AdamWState, params: Tree
+        self, grads: Tree, state: AdamWState, params: Tree,
+        sq_total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        donate: bool = False,
     ) -> Tuple[Tree, AdamWState, torch.Tensor]:
         """→ (new_params, new_state, global_grad_norm).
 
         Clip scaling is folded into the per-leaf update (never materializes
         a second full-precision gradient tree), and each leaf's float32
-        temporaries are freed before the next leaf's are made.
+        temporaries are freed before the next leaf's are made.  On a rank
+        mesh the trees hold this rank's blocks (moments inherit the
+        parameters' sharding), the update runs on them elementwise, and
+        ``sq_total`` makes the norm the whole tree's (:func:`global_norm`).
+        ``donate``: ``params`` and ``state`` may be overwritten (the
+        reference's jitted step donates them): each leaf is updated in
+        place, with the same numbers, and returned.
         """
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, sq_total)
         if self.grad_clip is not None:
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         else:
@@ -77,23 +85,30 @@ class AdamW:
 
         def upd(p, g, m, v):
             g = g.float() * scale
-            m = m * self.b1
+            m = m.mul_(self.b1) if donate else m * self.b1
             m.add_(g, alpha=1.0 - self.b1)
-            v = v * self.b2
+            v = v.mul_(self.b2) if donate else v * self.b2
             v.addcmul_(g, g, value=1.0 - self.b2)
             del g
             step = m / b1c
             step.div_((v / b2c).sqrt_().add_(self.eps))
             pf = p.float()
             step.add_(pf, alpha=self.weight_decay).mul_(lr)
-            return step.neg_().add_(pf).to(p.dtype), m, v
+            new = step.neg_().add_(pf).to(p.dtype)
+            return (p.copy_(new) if donate else new), m, v
 
         out = _map(upd, params, grads, state.m, state.v)
         pick = lambda i: _map(lambda o: o[i], out)  # noqa: E731
         return pick(0), AdamWState(pick(1), pick(2), count), gnorm
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, sq_total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32, summed leaf by
-    leaf in the reference's (sorted-key) order."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for _, leaf in flatten(tree)))
+    leaf in the reference's (sorted-key) order.  ``sq_total`` maps the
+    vector of each leaf's sum of squares to the whole leaves' where the
+    leaves are this rank's blocks (``distributed/actctx.py::whole_sq_sums``)."""
+    sq = torch.stack([torch.sum(torch.square(leaf.float())) for _, leaf in flatten(tree)])
+    if sq_total is not None:
+        sq = sq_total(sq)
+    return torch.sqrt(sum(sq.unbind()))
