@@ -207,8 +207,9 @@ leg's commonest and widest launch shapes) and K4's, as one JSON line (and
 kernels in one call.
 
     python3 chip_smoke.py --sharded-train
+    python3 chip_smoke.py --sharded
 
-builds the kernels and runs phase 14 alone (its line only).
+build the kernels and run phase 14, or phase 13, alone (its line only).
 """
 from __future__ import annotations
 
@@ -1033,18 +1034,19 @@ def _f32_forward(cfg, params, tokens, dev):
 
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla")
     model = Model(cfg32)
-
-    def up(tree):
-        return {k: up(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
-
     with torch.no_grad():
         x = params["embed"][torch.as_tensor(tokens, device=dev).long()].float()
         rope = model._rope(torch.arange(x.shape[1], device=dev))
         mixer, ffn = tf._slot_kind(cfg, 0)
         for li in range(cfg.n_layers):
-            lp = up(tf._index_tree(params["stack"], li))
+            lp = _up(tf._index_tree(params["stack"], li))
             x, _, _ = tf._apply_layer_full(lp, x, cfg32, rope, mixer, ffn, False)
-        return model, up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]}), x
+        return model, _up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]}), x
+
+
+def _up(tree):
+    """A tree's tensors in float32."""
+    return {k: _up(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
 
 
 def _prefill_logits_f32(cfg, params, prompt, dev):
@@ -2962,15 +2964,32 @@ SHARDED_TOL = 1e-4
 # one-rank bf16 logits' own distance from float32.
 SHARDED_BF16_FACTOR = 1.5
 SHARDED_REPS = 1                  # timed repeats of each step after the counted call
+# (e), (f): decode ticks under ACT_RULES_DECODE (the caches' positions over
+# ``model``) after the prefill, into caches of DECODE_S_MAX positions,
+# teacher-forced with the one-rank model's greedy tokens; then one tick on
+# a cache of decode_32k's length drawn from a seed
+# (``launch/sharded.py::seeded_caches``), its 128 rows cut to 4 by the
+# memory reckoning in PERF.md, at a position in the last rank's block with
+# every earlier block full.  Decode on (2, 2) runs at 2 layers only: its
+# weight gathers over ``data`` at 40 layers move about 6.1 GB a tick
+# through host memory.  (e) holds SHARDED_TOL against the one-rank model,
+# (f) SHARDED_BF16_FACTOR against the float32 reference.
+DECODE_S_MAX = 1024
+DECODE_TICKS = dict(f32=4, bf16=8)
+LONG = dict(b=4, s_max=32768, pos=32000, seed=SEED + 23)
 
 
-def _sharded_references(cfg, prompts, loss_tokens, dev):
+def _sharded_references(cfg, prompts, loss_tokens, long_token, dev):
     """The one-rank model on the card, the parameters from SEED: (a) f32 at
     2 layers, the prefill logits and the loss of the prompts; (b) bf16 at
     full depth, the prefill logits on K2 and in float32 throughout; (c)
-    the loss of ``loss_tokens`` in bf16 on K2 and in float32."""
+    the loss of ``loss_tokens`` in bf16 on K2 and in float32; (e), (f)
+    after each prefill (at DECODE_S_MAX) DECODE_TICKS greedy ticks — the
+    tokens fed and each tick's logits — and the long tick on LONG's
+    seeded caches; for (f) both in float32 throughout too."""
     import torch
 
+    from repro_torch.launch.sharded import seeded_caches
     from repro_torch.models.model import Model
 
     out = {}
@@ -2980,16 +2999,134 @@ def _sharded_references(cfg, prompts, loss_tokens, dev):
         params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
         tok = torch.as_tensor(prompts, device=dev).long()
         with torch.no_grad():
-            logits, caches = model.prefill(params, {"tokens": tok}, prompts.shape[1])
+            logits, caches = model.prefill(params, {"tokens": tok}, DECODE_S_MAX)
+            fed, ticks, last = [], [], logits
+            for t in range(DECODE_TICKS[key]):
+                fed.append(last.argmax(-1)[:, None])
+                last, caches = model.decode(params, fed[-1], prompts.shape[1] + t, caches)
+                ticks.append(last.float().cpu())
             del caches
             loss_tok = prompts if key == "f32" else loss_tokens
             loss, _ = model.loss(params, {"tokens": torch.as_tensor(loss_tok, device=dev).long()})
-        out[key] = dict(logits=logits.float().cpu(), loss=float(loss))
+            long_caches = seeded_caches(model, LONG["b"], LONG["s_max"], LONG["seed"], dev)
+            long = model.decode(params, torch.as_tensor(long_token, device=dev).long(),
+                                LONG["pos"], long_caches)[0]
+            del long_caches
+        fed = torch.cat(fed, 1).cpu().numpy()
+        out[key] = dict(logits=logits.float().cpu(), loss=float(loss), fed=fed,
+                        ticks=torch.stack(ticks), long=long.float().cpu())
         if key == "bf16":
             out[key]["logits_f32"] = _prefill_logits_f32(cfg, params, prompts, dev).cpu()
             out[key]["loss_f32"] = _loss_f32(cfg, params, loss_tokens, dev)
+            out[key]["ticks_f32"] = _ticks_f32(cfg, params, prompts, fed, dev).cpu()
+            out[key]["long_f32"] = _long_tick_f32(cfg, params, long_token, dev).cpu()
         del params
         _free()
+    return out
+
+
+def _ticks_f32(cfg, params, prompts, fed, dev):
+    """Teacher-forced ticks in float32 throughout: the logits at the fed
+    tokens' positions of one causal pass over the prompts and the fed
+    tokens (:func:`_f32_forward`) → ``[ticks, B, V]``."""
+    import torch
+
+    model, head, x = _f32_forward(cfg, params, np.concatenate([prompts, fed], 1), dev)
+    with torch.no_grad():
+        return model._head(head, x[:, prompts.shape[1]:]).transpose(0, 1)
+
+
+def _long_tick_f32(cfg, params, token, dev):
+    """LONG's tick in float32 throughout, layer by layer: each layer's bf16
+    weights upcast, its cache slabs drawn from LONG's seed
+    (``launch/sharded.py::cache_slab``), rounded to the compute dtype as
+    the ranks hold them and upcast, and dropped after the layer; the whole
+    float32 cache is never held → ``[B, V]``."""
+    import torch
+
+    from repro_torch.launch.sharded import cache_slab
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import dtype_of
+
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla")
+    model = Model(cfg32)
+    dtype = dtype_of(cfg.compute_dtype)
+    with torch.no_grad():
+        x = params["embed"][torch.as_tensor(token, device=dev).long()].float()
+        rope = model._rope(torch.tensor([LONG["pos"]], device=dev))
+        mixer, ffn = tf._slot_kind(cfg, 0)
+        for li in range(cfg.n_layers):
+            lp = _up(tf._index_tree(params["stack"], li))
+            cache = {w: cache_slab(cfg, LONG["b"], LONG["s_max"], LONG["seed"], li, w,
+                                   dev).to(dtype).float() for w in ("k", "v")}
+            x = tf._apply_layer_decode(lp, x, cfg32, rope, mixer, ffn, cache, LONG["pos"])
+            del cache, lp
+        return model._head(_up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]}),
+                           x)[:, 0]
+
+
+def _sharded_decode(ranks, case, ccfg, mesh, ref, label, fails):
+    """(e)/(f)/(g) of one case's decode entries → its report."""
+    import torch
+
+    from repro_torch.distributed.sharding import decode_rules
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharded import assemble_tick, sharded_collectives
+
+    err = lambda a, c: float((a - c).abs().max())  # noqa: E731
+    key = "bf16" if ccfg.compute_dtype == "bfloat16" else "f32"
+    rules = decode_rules(Mesh(tuple(mesh), tuple(mesh.values())))
+    size = 2 if key == "bf16" else 4
+    v, out = ccfg.vocab_size, {}
+    for j, (name, entry) in enumerate(zip(("ticks", "long"), case["decode"])):
+        b = entry["tokens"].shape[0]
+        s_max = entry.get("s_max", DECODE_S_MAX)
+        want = sharded_collectives(ccfg, mesh, rules, b, 1, size, size, "decode", s_max=s_max)
+        if any(ops != want for r in ranks for ops in r["decode"][j]["ops"]):
+            fails.append(f"(g) {label} decode {name}: a rank's ops differ from the formula")
+        refs = ref[key][name] if name == "long" else ref[key]["ticks"]
+        refs = refs[None] if name == "long" else refs
+        n = len(ranks[0]["decode"][j]["ms"])
+        got = [assemble_tick(ranks, j, t, b, v) for t in range(n)]
+        rep = dict(
+            pos=ranks[0]["decode"][j]["pos"], s_max=s_max, batch=b,
+            ms=[r["decode"][j]["ms"] for r in ranks],
+            kv=[r["decode"][j]["kv"] for r in ranks],
+            collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+            max_memory_allocated=[r["decode"][j]["max_memory_allocated"] for r in ranks],
+            k3_launches=[r["decode"][j]["k3_launches"] for r in ranks],
+            staging_s=[r["decode"][j]["staging_s"] for r in ranks],
+            finite=all(bool(torch.isfinite(g).all()) for g in got))
+        picks = [torch.empty(b, dtype=torch.long) for _ in range(n)]
+        for r in ranks:
+            r0, r1 = r["decode"][j]["rows"]
+            for t in range(n):
+                picks[t][r0:r1] = r["decode"][j]["tokens"][t]
+        if key == "f32":
+            rep.update(errs=[err(g, w) for g, w in zip(got, refs)], tolerance=SHARDED_TOL)
+            if not max(rep["errs"]) <= SHARDED_TOL:
+                fails.append(f"(e) {label} decode {name}: {rep['errs']} against one rank")
+        else:
+            f32 = ref[key]["long_f32"][None] if name == "long" else ref[key]["ticks_f32"]
+            rep.update(ranks_vs_f32=[err(g, w) for g, w in zip(got, f32)],
+                       one_rank_vs_f32=[err(o, w) for o, w in zip(refs, f32)],
+                       ranks_vs_one_rank=[err(g, o) for g, o in zip(got, refs)],
+                       bound_factor=SHARDED_BF16_FACTOR)
+            if any(a > SHARDED_BF16_FACTOR * o for a, o in zip(rep["ranks_vs_f32"],
+                                                               rep["one_rank_vs_f32"])):
+                fails.append(f"(f) {label} decode {name}: {rep['ranks_vs_f32']} from float32 "
+                             f"against one rank's {rep['one_rank_vs_f32']}")
+        whole = [g.argmax(-1) for g in got]
+        rep["greedy_equal_assembled"] = all(torch.equal(p, w) for p, w in zip(picks, whole))
+        rep["greedy_shared_with_one_rank"] = sum(
+            int((w == o.argmax(-1)).sum()) for w, o in zip(whole, refs))
+        rep["greedy_of"] = sum(int(w.numel()) for w in whole)
+        if not rep["finite"] or any(k != 0 for k in rep["k3_launches"]):
+            fails.append(f"{label} decode {name}: finite {rep['finite']}, K3 launched "
+                         f"{rep['k3_launches']}")
+        out[name] = rep
     return out
 
 
@@ -3011,18 +3148,25 @@ def phase_sharded(free_before):
                                                         SERVE["prompt_len"], 1, SEED)])
     loss_tokens = np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size,
                                                             SHARDED_LOSS_SHAPE)
-    ref = _sharded_references(cfg, prompts, loss_tokens, cuda)
+    long_token = np.random.default_rng(SEED + 29).integers(0, cfg.vocab_size, (LONG["b"], 1))
+    ref = _sharded_references(cfg, prompts, loss_tokens, long_token, cuda)
     ref_s = time.perf_counter() - t0
     released.append(_card_released(free_before))
 
     f32 = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
     full = dict(attn_impl="pallas", remat=False)
+    long = dict(tokens=long_token, seed=LONG["seed"], s_max=LONG["s_max"], pos=LONG["pos"])
     cases = []
     for mesh in SHARDED_MESHES:
         cases.append(dict(mesh=mesh, cfg=dict(full, **f32),
-                          prefill=dict(tokens=prompts), loss=dict(tokens=prompts)))
+                          prefill=dict(tokens=prompts, s_max=DECODE_S_MAX),
+                          decode=[dict(tokens=ref["f32"]["fed"]), long],
+                          loss=dict(tokens=prompts)))
     for mesh in SHARDED_MESHES:
-        case = dict(mesh=mesh, cfg=full, prefill=dict(tokens=prompts, reps=SHARDED_REPS))
+        case = dict(mesh=mesh, cfg=full, prefill=dict(tokens=prompts, s_max=DECODE_S_MAX,
+                                                      reps=SHARDED_REPS))
+        if mesh == (1, 4):
+            case["decode"] = [dict(tokens=ref["bf16"]["fed"]), long]
         if mesh == (2, 2):
             case["loss"] = dict(tokens=loss_tokens, reps=SHARDED_REPS)
         cases.append(case)
@@ -3036,6 +3180,7 @@ def phase_sharded(free_before):
     b, v = prompts.shape[0], cfg.vocab_size
     err = lambda a, c: float((a - c).abs().max())  # noqa: E731
     out = dict(rules=SHARDED_RULES, prompts=list(prompts.shape), loss_shape=SHARDED_LOSS_SHAPE,
+               decode=dict(s_max=DECODE_S_MAX, ticks=DECODE_TICKS, long=LONG),
                reference_s=ref_s, ranks_s=ranks_s, released_s=released,
                reference_losses=dict(f32_2_layers=ref["f32"]["loss"],
                                      bf16=ref["bf16"]["loss"], f32=ref["bf16"]["loss_f32"]))
@@ -3050,7 +3195,7 @@ def phase_sharded(free_before):
         logits = assemble_logits(ranks, b, v)
         k2 = [r["prefill"]["k2_launches"] for r in ranks]
         want = {step: sharded_collectives(ccfg, mesh, SHARDED_RULES, *case[step]["tokens"].shape,
-                                          size, size, step)
+                                          size, size, step, s_max=DECODE_S_MAX)
                 for step in ("prefill", "loss") if step in case}
         for step, ops in want.items():
             if any(r[step]["ops"] != ops for r in ranks):
@@ -3060,6 +3205,7 @@ def phase_sharded(free_before):
             collectives={step: dict(count=len(ops), wire_bytes=report_of(ops).by_kind())
                          for step, ops in want.items()},
             prefill_ms=[r["prefill"]["ms"] for r in ranks],
+            prefill_staging_s=[r["prefill"]["staging_s"] for r in ranks],
             init_s=[r["init_s"] for r in ranks],
             params_allocated=[r["params_allocated"] for r in ranks],
             max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
@@ -3067,7 +3213,8 @@ def phase_sharded(free_before):
             finite=bool(torch.isfinite(logits).all()))
         if "loss" in case:
             entry.update(losses=[r["loss"]["loss"] for r in ranks],
-                         loss_ms=[r["loss"]["ms"] for r in ranks])
+                         loss_ms=[r["loss"]["ms"] for r in ranks],
+                         loss_staging_s=[r["loss"]["staging_s"] for r in ranks])
         if depth != "bf16":
             entry.update(logits_err=err(logits, ref["f32"]["logits"]),
                          loss_err=max(abs(r["loss"]["loss"] - ref["f32"]["loss"]) for r in ranks),
@@ -3096,6 +3243,8 @@ def phase_sharded(free_before):
         if any(k != ccfg.n_layers for k in k2) or not entry["finite"]:
             fails.append(f"{label}: K2 launched {k2} times a prefill of {ccfg.n_layers} layers, "
                          f"finite {entry['finite']}")
+        if "decode" in case:
+            entry["decode"] = _sharded_decode(ranks, case, ccfg, mesh, ref, label, fails)
         out[label] = entry
     out["phase_s"] = time.perf_counter() - t0
     log("sharded", **out)
@@ -3339,8 +3488,9 @@ def _attention_entry(name, t, launches, **extra):
              "profiled_ms": t["profiled"]["ms_per_call"],
              "library_profiled_ms": t["library_profiled"]["ms_per_call"], **extra}
     if name == "flash_decode":
-        entry["launches_note"] = ("not on the serve path: the model's decode takes "
-                                  "the plain path, as the reference's does")
+        entry["launches_note"] = ("on no path, the sharded decode's included: the "
+                                  "model's decode takes the plain path, as the "
+                                  "reference's does")
     return entry
 
 
@@ -3383,8 +3533,12 @@ def main() -> int:
         phase_device()
         phase_sharded_train(torch.cuda.mem_get_info()[0])
         return 0
+    if sys.argv[1:] == ["--sharded"]:
+        phase_device()
+        phase_sharded(torch.cuda.mem_get_info()[0])
+        return 0
     if sys.argv[1:]:
-        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded]")
     name, smi = phase_device()
     timing = phase_kernels()
     main_cuda = phase_main_path()
@@ -3436,7 +3590,9 @@ def main() -> int:
                             "bf16_2x2_baseline"]["train_k2_launches"][0],
                         launches_sharded_train_eval=sharded_train[
                             "bf16_2x2_baseline"]["k2_launches"][0]),
-        _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"]), {
+        _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"],
+                         launches_sharded_decode_path=sharded["bf16_1x4"]["decode"]["ticks"][
+                             "k3_launches"][0]), {
         "name": "mamba_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",

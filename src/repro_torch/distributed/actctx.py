@@ -17,7 +17,10 @@ its sharded path under the rules' layout of the residual stream
 sequence over ``model`` where the rules put it there), each parameter a
 block by the context's ``param_rules`` (``PARAM_RULES``, or the small-DP
 policy's ``{}``: every leaf whole); the :class:`RankLayout` it hands the
-layers issues that path's collectives.  The MoE block with
+layers issues that path's collectives.  Under the decode rules
+(``sharding.decode_rules``) the same layout holds one token a row, the
+sequence whole, and :func:`cache_layout` adds the decode cache's block of
+positions (``kv_seq`` over ``model``) to it.  The MoE block with
 ``moe_impl="a2a"`` takes the expert-parallel dispatch, which cuts its
 input by the rules' ``batch`` and ``seq`` entries itself
 (``models/moe.py::a2a_layout``).  ``constrain`` on a rank mesh returns
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -136,7 +139,12 @@ class RankLayout:
     blocks' shapes), ``d_model`` over ``data`` (FSDP), gathered by
     :meth:`gather_params` just before use; under the small-DP policy's
     ``{}`` every leaf whole.  Every method issues its collectives through
-    ``distributed/collectives.py``, counted under ``path``."""
+    ``distributed/collectives.py``, counted under ``path``.
+
+    A decode layout (:func:`cache_layout`) also places the caches ``[L,
+    B, s_max, nkv, hd]``: this rank's rows of the batch, as the residual
+    stream's, and when ``kv_sharded`` its block of positions ``kv0:kv0 +
+    kv_loc`` over ``model`` (else every position), of every kv head."""
 
     mesh: Any
     batch: Tuple[str, ...]
@@ -144,6 +152,8 @@ class RankLayout:
     b: int
     s: int
     param_rules: Dict[str, Any]
+    s_max: int = 0
+    kv_sharded: bool = False
 
     @property
     def n_model(self) -> int:
@@ -170,6 +180,14 @@ class RankLayout:
     @property
     def s0(self) -> int:
         return self.mi * self.s_loc if self.seq_sharded else 0
+
+    @property
+    def kv_loc(self) -> int:
+        return self.s_max // self.n_model if self.kv_sharded else self.s_max
+
+    @property
+    def kv0(self) -> int:
+        return self.mi * self.kv_loc if self.kv_sharded else 0
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole-batch tensor."""
@@ -263,6 +281,22 @@ def rank_layout(b: int, s: int, d: int) -> Optional[RankLayout]:
         raise NotImplementedError(f"the sharded model with the batch over {batch}, the "
                                   f"sequence over {seq} and parameters by {param_rules}")
     return RankLayout(mesh, batch, seq == "model", b, s, param_rules)
+
+
+def cache_layout(lay: RankLayout, decl, rules: Dict[str, Any]) -> RankLayout:
+    """``lay`` with the block of the cache leaf that ``decl`` declares
+    (``[L, B, s_max, nkv, hd]``, axes ``("layers", "batch", "kv_seq",
+    "kv_heads", "head_dim")``) under ``rules``, by ``spec_for``: ``kv_seq``
+    over ``model`` where the decode rules put it there and it divides,
+    else whole.  Raises where the cache's batch would lie otherwise than
+    the residual stream's, its positions over another axis, or its kv
+    heads split."""
+    spec = spec_for(decl.shape, decl.axes, lay.mesh, rules) + (None,) * len(decl.shape)
+    batch = spec[1] if isinstance(spec[1], tuple) else (spec[1],) if spec[1] else ()
+    if batch != lay.batch or spec[2] not in (None, "model") or any(spec[3:]):
+        raise NotImplementedError(f"caches by {spec[:len(decl.shape)]} beside the batch over "
+                                  f"{lay.batch}")
+    return replace(lay, s_max=decl.shape[2], kv_sharded=spec[2] == "model")
 
 
 def replicated_axes(decl, mesh, param_rules: Dict[str, Any]) -> Tuple[str, ...]:

@@ -13,10 +13,12 @@ too).
 
 The route depends on the group's backend alone.  NCCL takes the tensors
 where they are.  Gloo on a CUDA tensor stages the payload through host
-memory: a copy to the host, the collective there, a copy back
-(``stats["host_staged"]``); gloo on a host tensor runs in place
-(``stats["direct"]``).  Gloo takes the list forms of ``all_gather`` and
-``reduce_scatter``, and ``all_to_all_single``, which both backends take.
+memory: a copy to pinned host memory, the collective there, a copy back
+(``stats["host_staged"]``; ``staging`` adds up the seconds of each of the
+three, the card synchronised before each copy is timed); gloo on a host
+tensor runs in place (``stats["direct"]``).  Both backends take
+``all_gather_into_tensor``, the list form of ``reduce_scatter`` and
+``all_to_all_single``.
 
 **Backward.**  Each collective is a ``torch.autograd.Function`` whose
 backward is its transpose over the same group, counted like a forward
@@ -24,7 +26,10 @@ one under its path with ``/bwd`` added: ``all_gather`` along ``dim`` →
 ``reduce_scatter`` along ``dim``; ``reduce_scatter`` → ``all_gather``;
 ``all_to_all`` → ``all_to_all``; ``psum`` → ``psum``.  Collectives that a
 checkpointed layer issues again while the backward pass recomputes it
-(:func:`recomputing`) count under ``/bwd`` too.
+(:func:`recomputing`) count under ``/bwd`` too.  :func:`pmax` (the
+sharded decode's row maxima, counted as an ``all-reduce``) is forward
+only: its backward raises ``NotImplementedError``, since no train step
+reaches it.
 
 These transposes hold under one convention for the cotangent of a value
 that several ranks hold alike (a gathered sequence, a layer's weights
@@ -44,6 +49,7 @@ alike ends the backward pass with a share on each, which
 """
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 from typing import Tuple, Union
 
@@ -54,6 +60,7 @@ from ..launch.hlo_analysis import record_collective
 from ..obs import default_registry
 
 stats = default_registry().group("collectives", ("direct", "host_staged"))
+staging = default_registry().group("collectives_staging", ("to_host_s", "op_s", "to_device_s"))
 
 Axes = Union[str, Tuple[str, ...]]
 
@@ -90,6 +97,44 @@ def _staged(x: torch.Tensor, group) -> bool:
     return staged
 
 
+def _to_host(x: torch.Tensor, staged: bool, copy: bool = False) -> torch.Tensor:
+    """``x``, contiguous, where the group's backend takes it: where gloo
+    stages it, a copy in pinned host memory (the caching host allocator's
+    blocks, so no fresh pages a call, and the copies at the card's DMA
+    rate); else ``x`` (a copy of it with ``copy``)."""
+    if not staged:
+        return x.clone(memory_format=torch.contiguous_format) if copy else x.contiguous()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out.copy_(x)
+    staging["to_host_s"] += time.perf_counter() - t0
+    return out
+
+
+def _empty(shape, like: torch.Tensor, staged: bool) -> torch.Tensor:
+    """A result buffer beside ``like``: pinned where gloo stages it."""
+    return torch.empty(shape, dtype=like.dtype, device=like.device, pin_memory=staged)
+
+
+def _run(collective, *args, **kwargs):
+    """The backend's collective, timed."""
+    t0 = time.perf_counter()
+    collective(*args, **kwargs)
+    staging["op_s"] += time.perf_counter() - t0
+
+
+def _to_device(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``out`` back on ``like``'s device."""
+    if out.device == like.device:
+        return out
+    t0 = time.perf_counter()
+    out = out.to(like.device)
+    torch.cuda.synchronize(like.device)
+    staging["to_device_s"] += time.perf_counter() - t0
+    return out
+
+
 def _record(kind: str, out: torch.Tensor, size: int, path: str, backward: bool = False):
     if backward or _RECOMPUTING:
         path = f"{path}/bwd"
@@ -97,31 +142,40 @@ def _record(kind: str, out: torch.Tensor, size: int, path: str, backward: bool =
 
 
 def _gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
-    src = x.cpu() if _staged(x, group) else x
-    parts = [torch.empty_like(src) for _ in range(size)]
-    dist.all_gather(parts, src.contiguous(), group=group)
-    return torch.cat(parts, dim).to(x.device)
+    """The blocks stacked ``[size, ...]`` by one ``all_gather_into_tensor``
+    into one buffer (pinned where staged), laid along ``dim`` on ``x``'s
+    device."""
+    staged = _staged(x, group)
+    src = _to_host(x, staged)
+    out = _empty((size * x.shape[0],) + tuple(x.shape[1:]), src, staged)
+    _run(dist.all_gather_into_tensor, out, src, group=group)
+    whole = _to_device(out, x).view((size,) + tuple(x.shape))
+    return whole.movedim(0, dim).flatten(dim, dim + 1)
 
 
-def _sum(x: torch.Tensor, group) -> torch.Tensor:
-    out = x.cpu().clone() if _staged(x, group) else x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out.to(x.device)
+def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = _to_host(x, _staged(x, group), copy=True)
+    _run(dist.all_reduce, out, op=op, group=group)
+    return _to_device(out, x)
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
-    src = (x.cpu() if _staged(x, group) else x).contiguous()
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
-    return out.to(x.device)
+    staged = _staged(x, group)
+    src = _to_host(x, staged)
+    out = _empty(src.shape, src, staged)
+    _run(dist.all_to_all_single, out, src, group=group)
+    return _to_device(out, x)
 
 
 def _scatter(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
-    src = x.cpu() if _staged(x, group) else x
-    parts = [p.contiguous() for p in src.chunk(size, dim)]
-    out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
-    return out.to(x.device)
+    """The blocks along ``dim`` stacked ``[size, ...]`` on ``x``'s device
+    first, so the host holds one contiguous buffer (pinned where staged)
+    whose rows are the list form's inputs."""
+    staged = _staged(x, group)
+    src = _to_host(x.unflatten(dim, (size, -1)).movedim(dim, 0), staged)
+    out = _empty(src.shape[1:], src, staged)
+    _run(dist.reduce_scatter, out, list(src.unbind(0)), op=dist.ReduceOp.SUM, group=group)
+    return _to_device(out, x)
 
 
 class _AllGather(torch.autograd.Function):
@@ -160,16 +214,28 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, size, path):
         ctx.args = (group, size, path)
-        out = _sum(x, group)
+        out = _reduce(x, group)
         _record("all-reduce", out, size, path)
         return out
 
     @staticmethod
     def backward(ctx, g):
         group, size, path = ctx.args
-        out = _sum(g, group)
+        out = _reduce(g, group)
         _record("all-reduce", out, size, path, backward=True)
         return out, None, None, None
+
+
+class _Pmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, path):
+        out = _reduce(x, group, dist.ReduceOp.MAX)
+        _record("all-reduce", out, size, path)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("pmax has no backward: no train step reaches it")
 
 
 class _AllToAll(torch.autograd.Function):
@@ -214,6 +280,15 @@ def psum(x: torch.Tensor, mesh, axes: Axes, path: str = "") -> torch.Tensor:
     if group is None:
         return x
     return _Psum.apply(x, group, size, path)
+
+
+def pmax(x: torch.Tensor, mesh, axes: Axes, path: str = "") -> torch.Tensor:
+    """``lax.pmax(x, axes)``: the elementwise maximum over the group, on
+    every rank (forward only)."""
+    group, size = _group(mesh, axes)
+    if group is None:
+        return x
+    return _Pmax.apply(x, group, size, path)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str, path: str = "") -> torch.Tensor:

@@ -91,6 +91,14 @@ ACT_RULES_DECODE: Dict[str, str] = {
 }
 
 
+def decode_rules(mesh: Mesh) -> Dict[str, Any]:
+    """:data:`ACT_RULES_DECODE` with the batch over ``("pod", "data")``
+    on a mesh with a ``pod`` axis, else ``("data",)``: the rules of a
+    decode cell (``launch/dryrun.py::policy_rules``) and of the caches a
+    prefill cell writes (the reference's ``build_cell``)."""
+    return {**ACT_RULES_DECODE, "batch": ("pod", "data") if "pod" in mesh.shape else ("data",)}
+
+
 def _axis_size(mesh: Mesh, axis) -> int:
     if isinstance(axis, tuple):
         out = 1

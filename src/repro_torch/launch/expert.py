@@ -220,9 +220,11 @@ def prefill(payload: dict) -> dict:
 
 
 def _host(tree):
+    """Host copies of a tree's tensors (copies on the host too, so later
+    in-place writes do not reach them)."""
     if isinstance(tree, dict):
         return {k: _host(v) for k, v in tree.items()}
-    return tree.cpu()
+    return tree.to("cpu", copy=True)
 
 
 def serve(payload: dict) -> dict:

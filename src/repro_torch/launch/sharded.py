@@ -1,6 +1,7 @@
 """Sharded runs of a dense model over a rank mesh: what each rank runs for
-a train step, ``Model.prefill`` and ``Model.loss`` under the baseline,
-``opt`` and small-DP policies, and the collectives they issue, by formula.
+a train step, ``Model.prefill``, decode ticks and ``Model.loss`` under the
+baseline, ``opt`` and small-DP policies, and the collectives they issue,
+by formula.
 
 :func:`run` is a target of ``distributed/ranks.py::run_ranks``: every rank
 calls it with the same payload, and for each case of ``payload["cases"]``
@@ -13,9 +14,12 @@ of the parameters by the parameter rules and runs, under
 ``activation_sharding(mesh, rules, param_rules)``, the steps the case
 names by its entries, in this order: ``"train": {"tokens": [B, S],
 "steps": n, "accum": a, "host": ...}``, ``"prefill": {"tokens": [B, S],
-"reps": ...}`` and ``"loss": {"tokens": ..., "loss_mask": ...
+"s_max": ... (default S), "reps": ...}``, ``"decode": [entry, ...]``
+(:func:`_decode`) and ``"loss": {"tokens": ..., "loss_mask": ...
 (optional), "cfg": ... (optional), "reps": ...}`` (numpy, the whole
-batch), the later ones on the parameters the train steps left.
+batch), the later ones on the parameters the train steps left.  The
+decode entries run under ``policy_rules``' rules for a decode cell
+(``ACT_RULES_DECODE``), the parameters as the case holds them.
 Parameters are either given whole (``params``: numpy, the reference's
 layout; each rank keeps its blocks, ``convert.shard_params``) or made
 from ``seed`` on the rank's device, each rank drawing the whole tree and
@@ -24,7 +28,7 @@ param_rules))``).  Each step's collectives are counted
 (``hlo_analysis.counting_collectives``; a train entry's of its first
 step) and come back as ``(kind, result_bytes, group, path)``, in issue
 order.  :func:`assemble_logits` puts the ranks' blocks of the prefill's
-logits together.
+logits together, :func:`assemble_blocks` those of a decode tick.
 
     run_ranks("repro_torch.launch.sharded:run", 8,
               {"device": "cpu", "cases": [case, ...]}, timeout_s=300)
@@ -40,10 +44,11 @@ import torch
 from ..configs import get_config
 from ..configs.base import ModelConfig, ShapeSpec
 from ..distributed import actctx
-from ..distributed.sharding import PARAM_RULES, rank_shard, spec_for
+from ..distributed.collectives import all_gather, staging
+from ..distributed.sharding import PARAM_RULES, decode_rules, rank_shard, spec_for
 from ..models.attention import rank_kv_heads
 from ..models.model import Model
-from ..models.params import flatten
+from ..models.params import dtype_of, flatten, param_axes
 from ..models.transformer import _one_layer_defs, _slot_kind
 from .expert import Op, _host, _ops, _route, _sync
 from .hlo_analysis import counting_collectives
@@ -54,12 +59,14 @@ AXES = ("pod", "data", "model")
 
 def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int, s: int,
                         param_bytes: int, act_bytes: int, step: str = "prefill",
-                        accum: int = 1, param_rules=None) -> List[Op]:
+                        accum: int = 1, param_rules=None, s_max=None) -> List[Op]:
     """The collectives one sharded ``Model.prefill`` (``step="prefill"``),
-    ``Model.loss`` (``"loss"``) or train step (``"train"``, ``accum``
-    microbatches) of a ``[b, s]`` batch issues on a rank, in order, for
-    parameters of ``param_bytes`` an element (by ``param_rules``, default
-    ``PARAM_RULES``) and activations of ``act_bytes``.
+    ``Model.loss`` (``"loss"``), train step (``"train"``, ``accum``
+    microbatches) of a ``[b, s]`` batch, or decode tick (``"decode"``) of
+    a ``[b, 1]`` token, issues on a rank, in order, for parameters of
+    ``param_bytes`` an element (by ``param_rules``, default
+    ``PARAM_RULES``) and activations of ``act_bytes``.  ``s_max``: the
+    caches' length (default ``s``).
 
     Forward: the embedding's gather over ``data`` and its sum into the
     residual stream's block; per layer, one gather of the layer's
@@ -67,8 +74,12 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     the sequence gathered over ``model`` and the row-parallel sum
     scattered back; then the prefill's last position or the loss's whole
     stream gathered over ``model`` and the head's gather over ``data``;
-    the loss's vocab-parallel combination over ``model`` and its sums over
-    the batch's axes.
+    the prefill's caches moved to the decode layout (``prefill/cache``:
+    an all-to-all over ``model``, an all-gather where the positions do not
+    split, none where the q heads do not); the loss's vocab-parallel
+    combination over ``model`` and its sums over the batch's axes.  A
+    decode tick (:func:`_decode_sections`, ``rules`` the decode rules) has
+    no sequence to gather, and the launcher's greedy pick ends it.
 
     A train step runs, for each microbatch, the loss's forward and then
     its backward: each op's transpose (``distributed/collectives.py``) in
@@ -82,9 +93,14 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     mesh = Mesh(tuple(mesh_shape), tuple(mesh_shape.values()))
     param_rules = PARAM_RULES if param_rules is None else param_rules
     defs = Model(cfg).defs()
+    s_max = s if s_max is None else s_max
+    if step == "decode":
+        embed, layer, head = _decode_sections(cfg, defs, mesh, rules, param_rules, b, s_max,
+                                              param_bytes, act_bytes)
+        return embed + layer * cfg.n_layers + head
     if step != "train":
         embed, layer, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b, s,
-                                            param_bytes, act_bytes, step)
+                                            param_bytes, act_bytes, step, s_max)
         return embed + layer * cfg.n_layers + head
     embed, layer, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s,
                                         param_bytes, act_bytes, "loss")
@@ -130,10 +146,89 @@ def _transpose(op: Op) -> Op:
     return kind, nbytes, group, f"{path}/bwd"
 
 
+def _gather_params(tree: dict, path: str, mesh, param_rules, param_bytes: int) -> List[Op]:
+    """One all-gather of every block split over an axis other than
+    ``model``: each such leaf whole along that axis
+    (``RankLayout.gather_params``)."""
+    n_model = mesh.shape.get("model", 1)
+    nbytes, group = 0, 1
+    for _, p in flatten(tree):
+        leaf = spec_for(p.shape, p.axes, mesh, param_rules)
+        other = [e for e in leaf if e not in (None, "model")]
+        if other:
+            group = math.prod(mesh.shape[a] for a in
+                              (other[0] if isinstance(other[0], tuple) else (other[0],)))
+            nbytes += math.prod(p.shape) // n_model ** leaf.count("model") * param_bytes
+    return [("all-gather", nbytes, group, path)] if group > 1 else []
+
+
+def _split(param_rules, mesh, axis: str, n: int) -> bool:
+    """Whether a dimension of ``n`` with logical ``axis`` splits over
+    ``model``."""
+    n_model = mesh.shape.get("model", 1)
+    return param_rules.get(axis) == "model" and n_model > 1 and n % n_model == 0
+
+
+def _cache_op(cfg: ModelConfig, mesh, param_rules, b_loc: int, s_max: int,
+              act_bytes: int) -> List[Op]:
+    """The prefill's caches moved to the decode layout
+    (``Model._cache_blocks``)."""
+    n_model = mesh.shape.get("model", 1)
+    if not _split(param_rules, mesh, "heads", cfg.n_heads):
+        return []
+    heads = cfg.n_kv_heads
+    if _split(param_rules, mesh, "kv_heads", heads):
+        heads //= n_model
+    k = Model(cfg).cache_defs(b_loc, s_max)["k"]
+    kv_split = (spec_for(k.shape, k.axes, mesh, decode_rules(mesh)) + (None,) * 3)[2] == "model"
+    nbytes = 2 * cfg.n_layers * b_loc * s_max * heads * cfg.resolved_head_dim * act_bytes
+    if kv_split:
+        return [("all-to-all", nbytes, n_model, "prefill/cache")]
+    return [("all-gather", nbytes * n_model, n_model, "prefill/cache")]
+
+
+def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s_max: int,
+                     param_bytes: int, act_bytes: int):
+    """(the embedding's ops, one layer's, the head's and the greedy
+    pick's) of a decode tick (``attention._decode_attention_sharded``)."""
+    batch, _ = actctx.residual_axes(b, 1, cfg.d_model, mesh, rules)
+    n_model = mesh.shape.get("model", 1)
+    b_loc = b // math.prod(mesh.shape[a] for a in batch)
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    k = Model(cfg).cache_defs(b, s_max)["k"]
+    kv_split = (spec_for(k.shape, k.axes, mesh, rules) + (None,) * 3)[2] == "model"
+    heads = _split(param_rules, mesh, "heads", nq)
+
+    def to_stream(axis: str, n: int, path: str) -> List[Op]:
+        if not _split(param_rules, mesh, axis, n):
+            return []
+        return [("all-reduce", b_loc * cfg.d_model * act_bytes, n_model, path)]
+
+    embed = (_gather_params({"embed": defs["embed"]}, "embed", mesh, param_rules, param_bytes)
+             + to_stream("vocab", cfg.vocab_size, "embed"))
+    layer = _gather_params(_one_layer_defs(cfg, *_slot_kind(cfg, 0)), "layer", mesh,
+                           param_rules, param_bytes)
+    if heads:
+        width = nq + (2 * nkv if _split(param_rules, mesh, "kv_heads", nkv) else 0)
+        layer.append(("all-gather", b_loc * width * hd * act_bytes, n_model, "attn/qkv"))
+    if kv_split:
+        layer += [("all-reduce", b_loc * nq * 4, n_model, "attn/max"),
+                  ("all-reduce", b_loc * nq * 4, n_model, "attn/sum"),
+                  ("reduce-scatter", b_loc * nq // n_model * hd * 4, n_model, "attn/pv") if heads
+                  else ("all-reduce", b_loc * nq * hd * 4, n_model, "attn/pv")]
+    layer += to_stream("heads", nq, "attn/out") + to_stream("d_ff", cfg.d_ff, "mlp/out")
+    head = _gather_params({"ln_f": defs["ln_f"], "lm_head": defs["lm_head"]}, "head", mesh,
+                          param_rules, param_bytes)
+    if _split(param_rules, mesh, "vocab", cfg.vocab_size):
+        head.append(("all-gather", n_model * b_loc * 2 * 8, n_model, "decode/greedy"))
+    return embed, layer, head
+
+
 def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: int,
-                   param_bytes: int, act_bytes: int, step: str):
+                   param_bytes: int, act_bytes: int, step: str, s_max: int = 0):
     """(the embedding's ops, one layer's, the head's and the loss's) of a
-    forward pass (:func:`sharded_collectives`)."""
+    forward pass (:func:`sharded_collectives`); a prefill's head section
+    ends with its caches' move to the decode layout."""
     batch, seq_axis = actctx.residual_axes(b, s, cfg.d_model, mesh, rules)
     seq = seq_axis == "model"
     n_model = mesh.shape.get("model", 1)
@@ -142,20 +237,10 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
     stream = b_loc * s * d * act_bytes
 
     def gather_params(tree: dict, path: str) -> List[Op]:
-        """One all-gather of every block split over an axis other than
-        ``model``: each such leaf whole along that axis."""
-        nbytes, group = 0, 1
-        for _, p in flatten(tree):
-            leaf = spec_for(p.shape, p.axes, mesh, param_rules)
-            other = [e for e in leaf if e not in (None, "model")]
-            if other:
-                group = math.prod(mesh.shape[a] for a in
-                                  (other[0] if isinstance(other[0], tuple) else (other[0],)))
-                nbytes += math.prod(p.shape) // n_model ** leaf.count("model") * param_bytes
-        return [("all-gather", nbytes, group, path)] if group > 1 else []
+        return _gather_params(tree, path, mesh, param_rules, param_bytes)
 
     def split(axis: str, n: int) -> bool:
-        return param_rules.get(axis) == "model" and n_model > 1 and n % n_model == 0
+        return _split(param_rules, mesh, axis, n)
 
     def to_stream(axis: str, n: int, path: str) -> List[Op]:
         if not split(axis, n):
@@ -175,7 +260,8 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
     head_params = gather_params({"ln_f": defs["ln_f"], "lm_head": defs["lm_head"]}, "head")
     if step == "prefill":
         last = gather_seq(b_loc * n_model * d * act_bytes, "prefill/last")
-        return embed, layer, last + head_params
+        cache = _cache_op(cfg, mesh, param_rules, b_loc, s_max, act_bytes)
+        return embed, layer, last + head_params + cache
     head = gather_seq(stream, "loss/x") + head_params
     if split("vocab", cfg.vocab_size):
         head.append(("all-gather", n_model * 2 * b_loc * (s - 1) * 4, n_model, "loss/vocab"))
@@ -200,7 +286,8 @@ def _rules(case: dict, mesh):
     """(cfg, parameter rules, activation rules) of a case: its ``rules``
     with ``PARAM_RULES``, or ``dryrun.policy_rules`` of its ``policy``
     (default ``"baseline"``) for a train cell (a ``"prefill"`` cell where
-    the case runs only a prefill) of its first entry's shape; ``cfg``'s
+    the case runs a prefill and decode entries only, a ``"decode"`` cell
+    where decode entries only) of its first entry's shape; ``cfg``'s
     overrides on top."""
     overrides = case.get("cfg", {})
     smoke = case.get("smoke", False)
@@ -208,8 +295,11 @@ def _rules(case: dict, mesh):
         return get_config(case["arch"], smoke=smoke).with_(**overrides), None, case["rules"]
     from .dryrun import policy_rules
 
-    kind = "prefill" if set(_STEPS) & set(case) == {"prefill"} else "train"
-    b, s = next(case[k]["tokens"] for k in _STEPS if k in case).shape
+    named = [k for k in _STEPS if k in case]
+    kind = ("train" if set(named) - {"prefill", "decode"} else
+            "prefill" if "prefill" in named else "decode")
+    first = case[named[0]]
+    b, s = (first[0] if isinstance(first, list) else first)["tokens"].shape
     cfg, param_rules, rules = policy_rules(case["arch"], ShapeSpec("case", kind, s, b), mesh,
                                            case.get("policy", "baseline"), smoke=smoke)
     return cfg.with_(**overrides), param_rules, rules
@@ -223,7 +313,13 @@ def _timed(fn, device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _train(model: Model, params, entry: dict, device):
+def _staging_since(before: dict) -> dict:
+    """The seconds host-staged collectives spent in each stage
+    (``collectives.staging``) since ``before`` (a copy of it)."""
+    return {k: staging[k] - before[k] for k in staging}
+
+
+def _train(model: Model, params, entry: dict, device, carry: dict):
     """``steps`` train steps (``launch/steps.py::make_train_step``, AdamW
     with ``build_cell``'s schedule, ``accum`` microbatches, parameters and
     state donated as ``build_cell`` donates them) of the whole batch
@@ -251,26 +347,160 @@ def _train(model: Model, params, entry: dict, device):
     return out, params
 
 
-def _prefill(model: Model, params, entry: dict, device):
+def _cols(lay, v_loc: int, cfg: ModelConfig):
+    """The vocabulary columns of this rank's ``v_loc`` logits."""
+    v0 = lay.mi * v_loc if v_loc != cfg.vocab_size else 0
+    return v0, v0 + v_loc
+
+
+def _prefill(model: Model, params, entry: dict, device, carry: dict):
+    """The prefill; its caches (this rank's blocks in the decode layout)
+    stay in ``carry`` for the decode entries."""
     from ..kernels import flash_attention
 
     tokens = torch.as_tensor(entry["tokens"]).long().to(device)
-    call = lambda: model.prefill(params, {"tokens": tokens}, tokens.shape[1])  # noqa: E731
+    s_max = entry.get("s_max", tokens.shape[1])
+    call = lambda: model.prefill(params, {"tokens": tokens}, s_max)  # noqa: E731
     flash_attention.stats["launches"] = 0
+    before = dict(staging)
     with counting_collectives() as report:
         (logits, caches), ms = _timed(call, device)
     k2 = flash_attention.stats["launches"]
     lay = actctx.rank_layout(*tokens.shape, model.cfg.d_model)
-    v_loc = logits.shape[-1]
-    v0 = lay.mi * v_loc if v_loc != model.cfg.vocab_size else 0
-    out = dict(logits=logits.cpu(), rows=(lay.b0, lay.b0 + lay.b_loc), cols=(v0, v0 + v_loc),
-               caches=_host(caches), ops=_ops(report), k2_launches=k2)
+    out = dict(logits=logits.cpu(), rows=(lay.b0, lay.b0 + lay.b_loc),
+               cols=_cols(lay, logits.shape[-1], model.cfg), caches=_host(caches),
+               ops=_ops(report), k2_launches=k2, staging_s=_staging_since(before))
+    carry.update(caches=caches, pos=tokens.shape[1], s_max=s_max)
     del logits, caches
     ms = [ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]
     return dict(out, ms=ms), params
 
 
-def _loss(model: Model, params, entry: dict, device):
+def cache_slab(cfg: ModelConfig, b: int, s_max: int, seed: int, layer: int, which: str,
+               device) -> torch.Tensor:
+    """Layer ``layer``'s whole ``which`` (``"k"`` or ``"v"``) cache ``[b,
+    s_max, nkv, hd]``, float32 standard normal, drawn on ``device`` from
+    ``(seed, layer, which)`` alone: every rank, and the one-rank model,
+    draw the same slab and keep what they hold of it."""
+    gen = torch.Generator(device=device).manual_seed(
+        (seed * 100_003 + layer) * 2 + ("k", "v").index(which))
+    return torch.randn((b, s_max, cfg.n_kv_heads, cfg.resolved_head_dim), generator=gen,
+                       device=device)
+
+
+def seeded_caches(model: Model, b: int, s_max: int, seed: int, device, mesh=None,
+                  rules=None):
+    """Caches of ``b`` rows and ``s_max`` positions from :func:`cache_slab`
+    in the compute dtype: whole, or this rank's blocks on ``mesh`` under
+    ``rules`` (``spec_for`` of the cache leaves), one layer's slab on the
+    device at a time."""
+    from ..distributed.sharding import block_index
+
+    cfg = model.cfg
+    k = model.cache_defs(b, s_max)["k"]
+    index = (slice(None),) * 5
+    if mesh is not None:
+        index = block_index(k.shape, spec_for(k.shape, k.axes, mesh, rules), mesh.shape,
+                            mesh.coords)
+    shape = [len(range(*sl.indices(n))) for sl, n in zip(index, k.shape)]
+    dtype = dtype_of(cfg.compute_dtype)
+    out = {}
+    for which in ("k", "v"):
+        out[which] = torch.empty(shape, dtype=dtype, device=device)
+        for layer in range(cfg.n_layers):
+            slab = cache_slab(cfg, b, s_max, seed, layer, which, device)
+            out[which][layer] = slab[index[1:]].to(dtype)
+            del slab
+    return out
+
+
+def _greedy(logits: torch.Tensor, lay, cfg: ModelConfig) -> torch.Tensor:
+    """The greedy tokens of this rank's rows from its block ``[b_loc,
+    V_loc]`` of the logits: each rank's largest logit and its index, one
+    all-gather of them over ``model`` (``decode/greedy``), the first
+    largest (the lowest index) of all."""
+    idx = logits.argmax(-1)
+    if logits.shape[-1] == cfg.vocab_size:
+        return idx
+    pair = torch.stack([logits.gather(-1, idx[:, None])[:, 0].double(),
+                        (idx + _cols(lay, logits.shape[-1], cfg)[0]).double()], -1)
+    pairs = all_gather(pair[None], lay.mesh, "model", 0, "decode/greedy")
+    best = pairs[..., 0].argmax(0)
+    return pairs[best, torch.arange(pair.shape[0], device=pair.device), 1].long()
+
+
+def _decode(model: Model, params, entries: List[dict], device, carry: dict):
+    """Decode ticks under the decode rules, one list item per entry:
+    ``{"tokens": [B, n]}`` (numpy) feeds the ``n`` tokens one tick at a
+    time (teacher-forced), from position ``pos``, into caches that are the
+    prefill's (none of the keys below; ``pos`` the prompt's length, then
+    where the last such entry stopped), the whole ``caches`` given (numpy
+    ``{"k", "v"}`` ``[L, B, s_max, nkv, hd]``; each rank keeps its blocks)
+    or drawn from ``seed`` at ``s_max`` (:func:`seeded_caches`); ``pos``
+    given with either.  ``host_caches``: also return host copies of this
+    rank's blocks after the last tick.  → per entry: each tick's logits
+    block (host), the greedy tokens of this rank's rows (:func:`_greedy`),
+    ``ops``, ``ms`` and ``pos``; ``rows``, ``cols``, ``kv`` (this rank's
+    positions), ``k3_launches`` (the decode kernel's, over the entry's
+    ticks) and, on the card, ``max_memory_allocated`` since the entry
+    began."""
+    from ..kernels import decode_attention
+
+    mesh, param_rules, rules = carry["mesh"], carry["param_rules"], carry["decode_rules"]
+    cfg, out = model.cfg, []
+    with actctx.activation_sharding(mesh, rules, param_rules):
+        for entry in entries:
+            tokens = torch.as_tensor(entry["tokens"]).long().to(device)
+            b = tokens.shape[0]
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            if "caches" in entry:
+                from ..convert import shard_params
+
+                s_max, pos = entry["caches"]["k"].shape[2], entry["pos"]
+                axes = param_axes(model.cache_defs(b, s_max))
+                blocks = shard_params(entry["caches"], axes, mesh, mesh.coords, rules)
+                caches = {k: torch.as_tensor(v).to(device, dtype_of(cfg.compute_dtype))
+                          .contiguous() for k, v in blocks.items()}
+            elif "seed" in entry:
+                s_max, pos = entry["s_max"], entry["pos"]
+                caches = seeded_caches(model, b, s_max, entry["seed"], device, mesh, rules)
+            else:
+                caches, s_max, pos = carry["caches"], carry["s_max"], carry["pos"]
+            lay = actctx.cache_layout(actctx.rank_layout(b, 1, cfg.d_model),
+                                      model.cache_defs(b, s_max)["k"], rules)
+            res = dict(logits=[], tokens=[], ops=[], ms=[], pos=[],
+                       rows=(lay.b0, lay.b0 + lay.b_loc), kv=(lay.kv0, lay.kv0 + lay.kv_loc))
+            decode_attention.stats["launches"] = 0
+            before = dict(staging)
+            for t in range(tokens.shape[1]):
+                def tick():
+                    logits, _ = model.decode(params, tokens[:, t:t + 1], pos, caches, s_max)
+                    return logits, _greedy(logits, lay, cfg)
+
+                with counting_collectives() as report:
+                    (logits, picks), ms = _timed(tick, device)
+                res["logits"].append(logits.cpu())
+                res["tokens"].append(picks.cpu())
+                res["ops"].append(_ops(report))
+                res["ms"].append(ms)
+                res["pos"].append(pos)
+                pos += 1
+            res["cols"] = _cols(lay, logits.shape[-1], cfg)
+            res["k3_launches"] = decode_attention.stats["launches"]
+            res["staging_s"] = _staging_since(before)
+            if entry.get("host_caches"):
+                res["caches"] = _host(caches)
+            if device.type == "cuda":
+                res["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+            if not ("caches" in entry or "seed" in entry):
+                carry["pos"] = pos
+            del caches
+            out.append(res)
+    return out, params
+
+
+def _loss(model: Model, params, entry: dict, device, carry: dict):
     from ..kernels import flash_attention
 
     model = Model(model.cfg.with_(**entry.get("cfg", {})))
@@ -279,31 +509,45 @@ def _loss(model: Model, params, entry: dict, device):
         batch["loss_mask"] = torch.as_tensor(entry["loss_mask"]).to(device)
     call = lambda: model.loss(params, batch)  # noqa: E731
     flash_attention.stats["launches"] = 0
+    before = dict(staging)
     with counting_collectives() as report:
         (total, metrics), ms = _timed(call, device)
     k2 = flash_attention.stats["launches"]
     return dict(loss=float(total), ce=float(metrics["ce"]), aux=float(metrics["aux"]),
-                ops=_ops(report), k2_launches=k2,
+                ops=_ops(report), k2_launches=k2, staging_s=_staging_since(before),
                 ms=[ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]), params
 
 
 #: The steps a case may name, in the order they run; a train step's new
 #: parameters are those of the steps after it.
-_STEPS = {"train": _train, "prefill": _prefill, "loss": _loss}
+_STEPS = {"train": _train, "prefill": _prefill, "decode": _decode, "loss": _loss}
+
+
+def _decode_rules(case: dict, mesh):
+    """``dryrun.policy_rules``' activation rules for a decode cell of the
+    case's arch and policy."""
+    from .dryrun import policy_rules
+
+    return policy_rules(case["arch"], ShapeSpec("case", "decode", 1, 1), mesh,
+                        case.get("policy", "baseline"), smoke=case.get("smoke", False))[2]
 
 
 def run(payload: dict) -> List[dict]:
     """The steps each case names → per case: ``coords``, ``kv_heads`` (the
-    global kv heads of this rank's caches, ``attention.rank_kv_heads``),
+    global kv heads of the prefill's k and v projection on this rank,
+    ``attention.rank_kv_heads``),
     ``init_s``, ``rules`` and ``param_rules`` (as :func:`_rules` chose
     them), and per step: the train steps' ``loss``, ``grad_norm`` and
     ``ops`` of the first, ``k2_launches`` over all of them, and host copies of this rank's blocks of the new
     ``params``, ``m`` and ``v`` (those the entry's ``host`` names; default
     all three); the prefill's ``logits`` (this rank's block ``[B / batch
     ranks, V / model ranks]``, at ``rows`` and ``cols`` of the whole),
-    ``caches`` (host), ``ops``, ``k2_launches``; the loss's ``loss``,
-    ``ce``, ``aux``, ``ops``, ``k2_launches`` (an entry's ``cfg``
-    overrides, e.g. ``attn_impl``); each step's ``ms``, the
+    ``caches`` (host; this rank's blocks in the decode layout), ``ops``,
+    ``k2_launches``; the decode entries' results (:func:`_decode`); the
+    loss's ``loss``, ``ce``, ``aux``, ``ops``, ``k2_launches`` (an entry's
+    ``cfg`` overrides, e.g. ``attn_impl``); the prefill's, the decode
+    entries' and the loss's ``staging_s`` (``collectives.staging`` over
+    the counted call, or the entry's ticks); each step's ``ms``, the
     CUDA-synchronised wall clock of each train step, or of the counted
     call and of ``reps`` more; on the card, ``params_allocated`` and
     ``max_memory_allocated``; ``route``.  A mesh of three axes is
@@ -327,10 +571,15 @@ def run(payload: dict) -> List[dict]:
                    kv_heads=rank_kv_heads(cfg, attn["w_q"], attn["w_k"], mesh.coords["model"]))
         if device.type == "cuda":
             res["params_allocated"] = torch.cuda.memory_allocated(device)
+        carry = dict(mesh=mesh, param_rules=PARAM_RULES if param_rules is None else param_rules)
+        if "decode" in case:
+            carry["decode_rules"] = _decode_rules(case, mesh)
         with torch.no_grad(), actctx.activation_sharding(mesh, rules, param_rules):
             for name, fn in _STEPS.items():
                 if name in case:
-                    res[name], params = fn(model, params, case[name], device)
+                    res[name], params = fn(model, params, case[name], device, carry)
+                if name == "decode":
+                    carry.pop("caches", None)     # the prefill's
         if device.type == "cuda":
             res["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
         del params
@@ -340,12 +589,25 @@ def run(payload: dict) -> List[dict]:
     return out
 
 
+def assemble_blocks(blocks, b: int, v: int) -> torch.Tensor:
+    """The whole ``[b, v]`` float32 logits from every rank's ``(block,
+    rows, cols)``."""
+    out = torch.empty(b, v)
+    for block, (r0, r1), (c0, c1) in blocks:
+        out[r0:r1, c0:c1] = block.float()
+    return out
+
+
 def assemble_logits(results: List[dict], b: int, v: int) -> torch.Tensor:
     """The whole ``[b, v]`` float32 last-position logits of one case from
     every rank's :func:`run` result, each block at its ``rows`` and
     ``cols``."""
-    out = torch.empty(b, v)
-    for r in results:
-        (r0, r1), (c0, c1) = r["prefill"]["rows"], r["prefill"]["cols"]
-        out[r0:r1, c0:c1] = r["prefill"]["logits"].float()
-    return out
+    return assemble_blocks([(r["prefill"]["logits"], r["prefill"]["rows"],
+                             r["prefill"]["cols"]) for r in results], b, v)
+
+
+def assemble_tick(results: List[dict], entry: int, tick: int, b: int, v: int) -> torch.Tensor:
+    """The whole ``[b, v]`` logits of decode entry ``entry``'s tick
+    ``tick`` of one case from every rank's :func:`run` result."""
+    return assemble_blocks([(r["decode"][entry]["logits"][tick], r["decode"][entry]["rows"],
+                             r["decode"][entry]["cols"]) for r in results], b, v)

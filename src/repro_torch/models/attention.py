@@ -13,7 +13,10 @@ projected on this rank's heads (column-parallel), the attention runs on
 those heads over the whole sequence (K2 under ``attn_impl="pallas"``),
 and the row-parallel output projection's partial sums are reduce-scattered
 back.  Kv heads that do not split over ``model`` stay whole on every rank,
-which takes the ones its q heads read (:func:`rank_kv_heads`).
+which takes the ones its q heads read (:func:`rank_kv_heads`).  Under the
+decode rules the dense model hands :func:`decode_attention` its decode
+layout, whose caches hold a block of positions for every kv head: the
+softmax runs across the ranks (:func:`_decode_attention_sharded`).
 """
 from __future__ import annotations
 
@@ -63,23 +66,42 @@ def _qk_normalize(p: dict, q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig):
     return q, k
 
 
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, rope, w_k: torch.Tensor,
+         w_v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v of ``x`` (k and v by ``w_k``, ``w_v``), q and k
+    normalised and rotated."""
+    q, k, v = _proj(x, p["w_q"]), _proj(x, w_k), _proj(x, w_v)
+    q, k = _qk_normalize(p, q, k, cfg)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
 def _gqa_scores_out(
     q: torch.Tensor,          # [B, Sq, nq, hd]
     k: torch.Tensor,          # [B, Sk, nkv, hd]
     v: torch.Tensor,          # [B, Sk, nkv, hd]
     mask: Optional[torch.Tensor],  # broadcastable to [B, 1, 1, Sq, Sk] or None
 ) -> torch.Tensor:
-    b, sq, nq, hd = q.shape
-    nkv = k.shape[2]
-    g = nq // max(nkv, 1)
-    qg = q.reshape(b, sq, nkv, g, hd)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # float32, as the reference
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    scores = _gqa_scores(q, k)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return out.reshape(b, sq, nq, hd)
+    return out.reshape(q.shape)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scaled float32 scores ``[B, nkv, g, Sq, Sk]`` of q ``[B, Sq, nq,
+    hd]`` against k ``[B, Sk, nkv, hd]`` (each q head against the kv head
+    it reads), the product in q's dtype."""
+    b, sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, sq, nkv, nq // max(nkv, 1), hd)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # float32, as the reference
+    return torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
 
 
 def _chunked_attention(
@@ -167,14 +189,7 @@ def full_attention(
         if heads_split and w_k.shape[1] == cfg.n_kv_heads:    # kv heads whole
             kv = rank_kv_heads(cfg, p["w_q"], w_k, lay.mi)
             w_k, w_v = w_k[:, kv], w_v[:, kv]
-    q = _proj(x, p["w_q"])
-    k = _proj(x, w_k)
-    v = _proj(x, w_v)
-    q, k = _qk_normalize(p, q, k, cfg)
-    if rope is not None:
-        cos, sin = rope
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    q, k, v = _qkv(p, x, cfg, rope, w_k, w_v)
     if cfg.attn_impl == "pallas" and causal:
         from ..kernels import ops as kops
 
@@ -195,21 +210,18 @@ def decode_attention(
     k_cache: torch.Tensor,              # [B, S_max, nkv, hd]
     v_cache: torch.Tensor,
     pos: int,                           # next position to write
+    lay=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode: write k/v at ``pos``, attend over positions ≤ pos.
 
     The caches are written in place (the reference returns updated copies
     and its engine donates the old ones); the same tensors are returned.
     As with ``dynamic_update_slice``, a ``pos`` outside the cache writes at
-    the nearest end."""
-    q = _proj(x, p["w_q"])
-    k = _proj(x, p["w_k"])
-    v = _proj(x, p["w_v"])
-    q, k = _qk_normalize(p, q, k, cfg)
-    if rope is not None:
-        cos, sin = rope                 # tables for position `pos`: [1, hd/2]
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    the nearest end.  With ``lay`` (a rank mesh's decode ``RankLayout``),
+    :func:`_decode_attention_sharded`."""
+    if lay is not None:
+        return _decode_attention_sharded(p, x, cfg, rope, k_cache, v_cache, int(pos), lay)
+    q, k, v = _qkv(p, x, cfg, rope, p["w_k"], p["w_v"])   # rope: position `pos`'s tables
     s_max = k_cache.shape[1]
     at = min(max(int(pos), 0), s_max - 1)
     k_cache[:, at] = k[:, 0]
@@ -218,6 +230,70 @@ def decode_attention(
     mask = (ki <= pos).reshape(1, 1, 1, 1, s_max)
     out = _gqa_scores_out(q, k_cache, v_cache, mask)
     return _out_proj(out, p["w_o"]), k_cache, v_cache
+
+
+def _decode_attention_sharded(p, x, cfg: ModelConfig, rope, k_cache, v_cache, pos: int, lay):
+    """The decode step on a rank mesh, as GSPMD partitions the reference's
+    ``decode_attention`` under ``ACT_RULES_DECODE``.  ``x`` ``[b_loc, 1,
+    d]`` is this rank's rows, ``p`` its blocks of the weights with
+    ``d_model`` whole, and the caches ``[b_loc, kv_loc, nkv, hd]`` its
+    block of positions (``lay.kv0`` on) for every kv head.
+
+    q, k and v are projected on this rank's heads (column-parallel);
+    where the kv heads do not split over ``model`` every rank projects all
+    of them, as the cache needs them.  One all-gather over ``model``
+    (``attn/qkv``) makes the new token's q, and k and v where their heads
+    split, whole.  The rank whose block holds ``clamp(pos, 0, s_max - 1)``
+    writes k and v there.  Every rank scores all q heads against its
+    positions, masked to ``≤ pos``; a two-pass softmax across the ranks —
+    the row maxima's ``pmax`` (``attn/max``), the sums of ``exp(s - M)``'s
+    ``psum`` (``attn/sum``) — gives ``p = exp(s - M) / L``, rounded to the
+    compute dtype where one rank's softmax rounds it; ``p @ v`` over the
+    block in float32, reduce-scattered onto this rank's heads
+    (``attn/pv``; summed where the heads do not split), rounded once.  A
+    block wholly after ``pos`` adds exactly 0.  (A flash-decode merge of
+    each rank's normalised partials would round the probabilities
+    elsewhere.)  Where the positions do not split, every rank holds the
+    whole cache and attends as one rank does.  The row-parallel output
+    projection on this rank's heads is summed over ``model``
+    (``attn/out``)."""
+    from ..distributed.collectives import all_gather, pmax, psum, reduce_scatter
+
+    heads_split = p["w_q"].shape[1] != cfg.n_heads
+    kv_split = p["w_k"].shape[1] != cfg.n_kv_heads
+    q, k, v = _qkv(p, x, cfg, rope, p["w_k"], p["w_v"])
+    nq_loc = q.shape[2]
+    if heads_split:
+        parts = [q, k, v] if kv_split else [q]
+        widths = [t.shape[2] for t in parts]
+        whole = all_gather(torch.cat(parts, 2), lay.mesh, "model", 2, "attn/qkv")
+        whole = whole.unflatten(2, (lay.n_model, sum(widths))).split(widths, 3)
+        parts = [t.flatten(2, 3) for t in whole]
+        q = parts[0]
+        if kv_split:
+            k, v = parts[1:]
+    at = min(max(pos, 0), lay.s_max - 1) - lay.kv0
+    if 0 <= at < lay.kv_loc:
+        k_cache[:, at] = k[:, 0]
+        v_cache[:, at] = v[:, 0]
+    ki = lay.kv0 + torch.arange(lay.kv_loc, device=x.device)
+    mask = (ki <= pos).reshape(1, 1, 1, 1, lay.kv_loc)
+    if not lay.kv_sharded:
+        out = _gqa_scores_out(q, k_cache, v_cache, mask)
+        if heads_split:
+            out = out[:, :, lay.mi * nq_loc:(lay.mi + 1) * nq_loc]
+    else:
+        s = torch.where(mask, _gqa_scores(q, k_cache), NEG_INF)
+        m = pmax(s.amax(-1, keepdim=True), lay.mesh, "model", "attn/max")
+        e = torch.exp(s - m)
+        total = psum(e.sum(-1, keepdim=True), lay.mesh, "model", "attn/sum")
+        probs = (e / total).to(q.dtype)
+        part = torch.einsum("bkgqs,bskh->bqkgh", probs.float(), v_cache.float())
+        part = part.reshape(q.shape[:2] + (cfg.n_heads, q.shape[3]))
+        out = (reduce_scatter(part, lay.mesh, "model", 2, "attn/pv") if heads_split
+               else psum(part, lay.mesh, "model", "attn/pv")).to(q.dtype)
+    y = _out_proj(out, p["w_o"])
+    return lay.scatter_seq(y, heads_split, "attn/out"), k_cache, v_cache
 
 
 def cross_attention(

@@ -27,7 +27,16 @@ the vocabulary give 0), reduce-scattered into the residual stream's block
 this rank's heads and ``d_ff`` columns; the head is vocab-parallel.
 ``prefill`` returns this rank's block of the last position's logits,
 ``[B / batch ranks, V / model ranks]`` (the reference's output spec
-``(batch, vocab)``), and caches of this rank's rows and kv heads.
+``(batch, vocab)``), and this rank's blocks of the caches in the layout
+the reference's prefill cell writes them (``out_shardings`` under
+``ACT_RULES_DECODE``, ``sharding.decode_rules``): its rows, its block of
+positions over ``model`` (every position where ``s_max`` does not divide
+the axis), every kv head (:meth:`Model._cache_blocks`).  Under the decode
+rules ``decode`` runs the reference's decode cell: ``token`` the whole
+``[B, 1]``, ``caches`` this rank's blocks in that layout (``s_max`` their
+whole length), the softmax across the ranks' blocks of positions
+(``attention.decode_attention``); it returns this rank's ``[B / batch
+ranks, V / model ranks]`` logits and writes its blocks in place.
 ``loss`` takes a vocab-parallel cross-entropy — each rank's log-sum-exp
 and gold logit over its block of the vocabulary, gathered over ``model``
 and combined — and returns the mean over every position of the global
@@ -42,7 +51,7 @@ is not ported).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -241,7 +250,52 @@ class Model:
 
             last = all_gather(last, lay.mesh, "model", 1, "prefill/last")[:, -1:]
         logits = self._head(params, last, lay)[:, 0]
+        if lay is not None:
+            return logits, self._cache_blocks(params, states, s_max, lay)
         return logits, self._pad_states(states, s_max)
+
+    def _cache_blocks(self, params: Tree, states: Tree, s_max: int, lay) -> Tree:
+        """The sharded prefill's k and v (this rank's rows over the whole
+        sequence, on the kv heads ``attention.rank_kv_heads`` gives it),
+        padded to ``s_max`` → this rank's blocks of the caches in the decode
+        layout (module docstring).  Where the kv heads split over ``model``
+        one all-to-all over ``model`` (``prefill/cache``) swaps blocks of
+        positions for blocks of heads; where they are whole, each rank sends
+        the heads it has at their places and takes each head from the first
+        rank that has it; where the positions do not split, an all-gather
+        takes the place of the all-to-all.  Where the q heads do not split,
+        every rank has every kv head and keeps its positions."""
+        from ..distributed.actctx import cache_layout
+        from ..distributed.collectives import all_gather, all_to_all
+        from ..distributed.sharding import decode_rules
+        from .attention import rank_kv_heads
+
+        cfg, n = self.cfg, lay.n_model
+        padded = self._pad_states(states, s_max)
+        x = torch.stack([padded["k"], padded["v"]])        # [2, L, b, s_max, heads, hd]
+        cl = cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], decode_rules(lay.mesh))
+        attn = params["stack"]["attn"]
+        if attn["w_q"].shape[-2] == cfg.n_heads:
+            x = x[:, :, :, cl.kv0:cl.kv0 + cl.kv_loc]
+            return {"k": x[0].contiguous(), "v": x[1].contiguous()}
+        kv_split = attn["w_k"].shape[-2] != cfg.n_kv_heads
+        if not kv_split:
+            heads = [rank_kv_heads(cfg, attn["w_q"], attn["w_k"], j) for j in range(n)]
+            full = x.new_zeros(x.shape[:-2] + (cfg.n_kv_heads, x.shape[-1]))
+            full[..., heads[lay.mi], :] = x
+            x = full
+        if cl.kv_sharded:       # block j of positions to rank j
+            x = all_to_all(x.unflatten(3, (n, cl.kv_loc)).movedim(3, 0), lay.mesh, "model",
+                           "prefill/cache")
+        else:
+            x = all_gather(x[None], lay.mesh, "model", 0, "prefill/cache")
+        if kv_split:            # x[j]: rank j's heads at this rank's positions
+            x = x.movedim(0, -3).flatten(-3, -2)
+        else:
+            owner = torch.tensor([min(j for j in range(n) if h in heads[j])
+                                  for h in range(cfg.n_kv_heads)], device=x.device)
+            x = x[owner, ..., torch.arange(cfg.n_kv_heads, device=x.device), :].movedim(0, -2)
+        return {"k": x[0].contiguous(), "v": x[1].contiguous()}
 
     def _pad_states(self, states: Tree, s_max: int) -> Tree:
         """Place prefill k/v (length S) into zero caches of length s_max,
@@ -266,16 +320,31 @@ class Model:
         token: torch.Tensor,         # [B, 1] integer
         pos: int,                    # position being written
         caches: Tree,
+        s_max: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Tree]:
         """One-token step → (logits [B, V], caches).  The caches are
-        updated in place and returned."""
+        updated in place and returned.  On a rank mesh (module docstring)
+        ``s_max`` is the caches' whole length, which their blocks do not
+        tell."""
         if self.cfg.family == "encdec":
             logits, caches = ed.decode_step(params, token, int(pos), caches, self.cfg)
             return logits[:, 0], caches
-        x = self._embed(params, token)
+        lay = self._layout({"tokens": token})
+        if lay is not None:
+            from ..distributed.actctx import active, cache_layout
+
+            if s_max is None:
+                raise ValueError("a decode on a rank mesh needs the caches' length, s_max")
+            lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], active()[1])
+            if tuple(caches["k"].shape[1:3]) != (lay.b_loc, lay.kv_loc):
+                raise ValueError(f"caches {tuple(caches['k'].shape)} are not this rank's "
+                                 f"{lay.b_loc} rows and {lay.kv_loc} positions")
+            token = lay.rows(token)
+        x = self._embed(params, token, lay)
         rope = self._rope(torch.tensor([int(pos)], device=x.device))
-        x, caches = apply_stack_decode(self.cfg, params["stack"], x, rope, caches, int(pos))
-        return self._head(params, x)[:, 0], caches
+        x, caches = apply_stack_decode(self.cfg, params["stack"], x, rope, caches, int(pos),
+                                       lay)
+        return self._head(params, x, lay)[:, 0], caches
 
 
 def _map_named(fn, tree):

@@ -30,7 +30,10 @@ layer, and drops them after, as the reference's ZeRO-3 under
 gathered weights.  The recomputation stops at the layer's last saved
 tensor (``torch.utils.checkpoint``'s early stop, on by default), so it
 issues the layer's collectives up to its MLP's input gather, each counted
-as the backward pass's (``collectives.recomputing``).
+as the backward pass's (``collectives.recomputing``).  A decode tick on a
+rank mesh gathers each layer's weights the same way, and each layer
+writes the new token's k and v into this rank's block of the caches
+where the block holds its position.
 """
 from __future__ import annotations
 
@@ -158,10 +161,11 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
 
 
 def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
-                        ffn: str, cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+                        ffn: str, cache: Dict[str, torch.Tensor], pos: int,
+                        lay=None) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
-        y, _, _ = decode_attention(lp["attn"], h, cfg, rope, cache["k"], cache["v"], pos)
+        y, _, _ = decode_attention(lp["attn"], h, cfg, rope, cache["k"], cache["v"], pos, lay)
     else:
         y, conv_c, h_c = mamba_decode(lp["mamba"], h, cfg, cache["conv"], cache["h"])
         cache["conv"].copy_(conv_c)
@@ -172,7 +176,7 @@ def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer
         if ffn == "moe":
             y, _ = moe_block(lp["moe"], h, cfg)
         else:
-            y = mlp_block(lp["mlp"], h, cfg)
+            y = mlp_block(lp["mlp"], h, cfg, lay)
         x = x + y
     return x
 
@@ -249,16 +253,22 @@ def apply_stack_decode(
     rope,
     caches: Cache,
     pos: int,
+    lay=None,
 ):
     """One-token pass → (x, caches); each layer writes its slice of the
     stacked caches in place, and the same dict is returned.  An MoE
-    layer's auxiliary loss is dropped, as in the reference."""
+    layer's auxiliary loss is dropped, as in the reference.  ``lay``: a
+    dense stack on a rank mesh under the decode rules, whose caches are
+    this rank's blocks (module docstring; ``attention.decode_attention``)."""
     n_units, slots = _units(cfg)
+    layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
     for ui in range(n_units):
         up, cu = _index_tree(stack, ui), _index_tree(caches, ui)
+        if lay is not None:
+            up = lay.gather_params(up, layer_defs, "layer")
         for key, mixer, ffn in slots:
             lp, cc = (up, cu) if key is None else (up[key], cu[key])
-            x = _apply_layer_decode(lp, x, cfg, rope, mixer, ffn, cc, pos)
+            x = _apply_layer_decode(lp, x, cfg, rope, mixer, ffn, cc, pos, lay)
     return x, caches
 
 

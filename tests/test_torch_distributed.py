@@ -10,6 +10,7 @@ every arch's parameter and cache defs at the production mesh shapes (16,
 ``tests/test_sharding_and_hlo.py``; ``constrain``'s rules; and the mesh
 functions.
 """
+import json
 import os
 import re
 import subprocess
@@ -27,7 +28,6 @@ from repro.configs import get_config as ref_get_config
 from repro.configs.base import DECODE_32K
 from repro.distributed import grad_compress as ref_gc
 from repro.distributed import sharding as ref_sharding
-from repro.launch.mesh import make_smoke_mesh as ref_smoke_mesh
 from repro.models.model import Model as RefModel
 from repro.runtime import elastic_mesh_shape as ref_elastic
 from repro_torch.configs import ARCH_NAMES, get_config
@@ -281,9 +281,24 @@ def test_meshes_agree_with_elastic_mesh_shape():
         single.device
 
 
+def _ref_smoke_mesh_shape(data: int, model: int) -> dict:
+    """The reference's ``make_smoke_mesh(data, model).shape``, read in a
+    subprocess whose ``XLA_FLAGS`` is cleared: jax in this process may
+    already hold the host devices that importing ``repro.launch.dryrun``
+    forces (512), where the reference's smoke mesh is no longer (1, 1)."""
+    code = ("import json\n"
+            "from repro.launch.mesh import make_smoke_mesh\n"
+            f"print(json.dumps(dict(make_smoke_mesh(data={data}, model={model}).shape)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**env, "PYTHONPATH": SRC}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def test_smoke_mesh():
     cpu = mesh_mod.make_smoke_mesh(data=4, model=2, device="cpu")
-    assert cpu.shape == dict(ref_smoke_mesh(data=4, model=2).shape) == {"data": 1, "model": 1}
+    assert cpu.shape == _ref_smoke_mesh_shape(data=4, model=2) == {"data": 1, "model": 1}
     assert cpu.device == torch.device("cpu") and mesh_mod.mesh_device_count(cpu) == 1
     if torch.cuda.device_count() == 0:
         with pytest.raises(RuntimeError, match="no CUDA device"):

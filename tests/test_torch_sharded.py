@@ -17,7 +17,9 @@ The port runs the same model on 8 spawned gloo ranks as a (2, 4) rank mesh
 and on 4 ranks in every 4-rank case at once (``distributed/ranks.py``,
 ``launch/sharded.py``), each rank holding its blocks of the reference's
 parameters (``convert.shard_params``).  Checked: the 8-rank prefill's
-logits and caches and its loss within 1e-5 of the reference's cell; the
+logits and caches (each rank's blocks in the decode layout of the cell's
+``out_shardings``: ``kv_seq`` over ``model``, every kv head) and its loss
+within 1e-5 of the reference's cell; the
 (1, 4) and (2, 2) meshes and the layouts ``spec_for`` degrades — 2 kv
 heads on a model axis of 4 (whole on every rank), a sequence or a batch
 the axis does not divide, rules without ``"seq"`` — within 1e-5 of the
@@ -60,7 +62,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.sharded import assemble_logits, sharded_collectives
 from repro_torch.models.attention import local_kv_heads
 from repro_torch.models.model import Model
-from repro_torch.models.params import flatten
+from repro_torch.models.params import flatten, param_axes
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCH = "mistral-nemo-12b"
@@ -310,15 +312,20 @@ def _one_rank(name, ref):
 
 
 def _check(name, ranks, logits, caches, loss):
+    """Each rank's block of the logits, its blocks of the caches in the
+    decode layout the reference's prefill cell writes (``kv_seq`` over
+    ``model``, every kv head: ``sharding.decode_rules``), and the loss."""
     np.testing.assert_allclose(assemble_logits(ranks, *logits.shape).numpy(), logits,
                                atol=TOL, rtol=0)
-    for r in ranks:
+    cache_axes = param_axes(Model(_cfg()).cache_defs(*caches["k"].shape[1:3]))
+    for rank, r in enumerate(ranks):
         rows, cols = slice(*r["prefill"]["rows"]), slice(*r["prefill"]["cols"])
         np.testing.assert_allclose(r["prefill"]["logits"].numpy(), logits[rows, cols],
                                    atol=TOL, rtol=0)
+        mesh = _fake_rank_mesh(CASES[name][0], rank)
+        want = shard_params(caches, cache_axes, mesh, mesh.coords, sharding.decode_rules(mesh))
         for k in ("k", "v"):
-            np.testing.assert_allclose(r["prefill"]["caches"][k].numpy(),
-                                       caches[k][:, rows][:, :, :, r["kv_heads"]],
+            np.testing.assert_allclose(r["prefill"]["caches"][k].numpy(), want[k],
                                        atol=TOL, rtol=0)
         assert abs(r["loss"]["loss"] - loss) <= TOL
         assert r["loss"]["aux"] == 0.0
