@@ -182,11 +182,12 @@ result lines are printed:
               2 × 1 024, parameters and moments donated; then on the same
               card the one-rank steps from the same seed: (a) 2 layers in
               float32: each step's loss and grad norm within 1e-4, every
-              leaf of the final m within 1e-3 of its largest |m|; (b) 6
-              layers in bf16 (depth by the memory reckoning in PERF.md):
-              losses within 1e-2 and grad norms within 2 %, then an eval
-              of 2 × 512 through K2 on each rank's heads of the updated
-              shards (6 launches a rank) within 1e-2 of the one-rank
+              leaf of the final m within 1e-3 of its largest |m|; (b) 4
+              layers in bf16 (depth by the memory reckoning in PERF.md
+              and the script's time): losses within 1e-2 and
+              grad norms within 2 %, then an eval of 2 × 512 through K2 on
+              each rank's heads of the updated shards (4 launches a rank)
+              within 1e-2 of the one-rank
               model's; K2 launched no time in the train steps (they take
               the chunked attention, as the reference's train cell does);
               every rank's collectives equal to ``sharded_collectives(
@@ -194,6 +195,27 @@ result lines are printed:
               step times, wire bytes by kind, memory.  Small-DP takes no
               full-width dense config (all have at least 2e8 parameters):
               it is held on the CPU only, as the output says.
+15. sharded ssm — falcon-mamba-7b at full width sharded over 4 ranks of
+              the one card (gloo, host-staged), each layer's mamba block
+              on the rank's block of ``d_inner`` and the tied head on the
+              embedding's vocab-parallel block, the rules from
+              ``policy_rules`` (``ACT_RULES_DECODE`` for the ticks): (a) 2
+              layers in float32 on (1, 4) and (2, 2): the prefill of 2 ×
+              512, the loss of 2 × 1 024 and 4 ticks fed from the
+              prefill's states within 1e-4 of one rank, and on (2, 2) two
+              train steps (accum 2, baseline) by phase 14's (a) gates; (b)
+              all 64 layers in bf16 on (1, 4): the prefill no farther from
+              float32 than 1.5 × one rank's bf16 (first tokens equal), the
+              eval of 2 × 1 024 through K4 (64 launches a rank at d_in
+              2 048; its distance from one rank's time loop reported), the
+              same eval in float32 within 1e-4 of one rank's float32 time
+              loop, 8 ticks, a tick at decode_32k's B 128 and one at
+              long_500k's B 1, ``pos`` 524 287, each by the same 1.5 ×
+              rule; (c) two bf16 train steps on (1, 4) under ``opt`` at 4
+              layers by phase 14's (b) gates; (d) every rank's collectives equal to
+              ``sharded_collectives``; (e) K4 against its plain version at
+              d_in 2 048 and 4 096 (B 2, S 1 024), timed; (f) per rank the
+              step, tick and eval times, wire bytes by kind, memory.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -208,8 +230,9 @@ kernels in one call.
 
     python3 chip_smoke.py --sharded-train
     python3 chip_smoke.py --sharded
+    python3 chip_smoke.py --sharded-ssm
 
-build the kernels and run phase 14, or phase 13, alone (its line only).
+build the kernels and run phase 14, 13 or 15 alone (its line only).
 """
 from __future__ import annotations
 
@@ -1021,18 +1044,26 @@ def _prefill_logits(model, params, prompt, s_max, dev):
     return logits[0].float()
 
 
+def _head_params(cfg, params):
+    """The parameters the head reads: ``ln_f`` and ``lm_head``, or the
+    embedding for a tied head."""
+    return {k: params[k] for k in ("ln_f", "embed" if cfg.tie_embeddings else "lm_head")}
+
+
 def _f32_forward(cfg, params, tokens, dev):
     """The stack over ``tokens`` ``[B, S]`` in float32 throughout, on the
-    plain attention path, with each layer's bf16 weights upcast as the
-    layer runs (a float32 copy of all the weights would not fit beside the
-    bf16 ones) → (the float32 model, its head's parameters, the last
-    layer's output).  A uniform stack: dense or MoE."""
+    plain attention path (the SSM's time loop), with each layer's bf16
+    weights upcast as the layer runs (a float32 copy of all the weights
+    would not fit beside the bf16 ones) → (the float32 model, its head's
+    parameters, the last layer's output).  A uniform stack: dense, MoE or
+    SSM."""
     import torch
 
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import Model
 
-    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla")
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla",
+                      ssm_impl="xla")
     model = Model(cfg32)
     with torch.no_grad():
         x = params["embed"][torch.as_tensor(tokens, device=dev).long()].float()
@@ -1041,7 +1072,7 @@ def _f32_forward(cfg, params, tokens, dev):
         for li in range(cfg.n_layers):
             lp = _up(tf._index_tree(params["stack"], li))
             x, _, _ = tf._apply_layer_full(lp, x, cfg32, rope, mixer, ffn, False)
-        return model, _up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]}), x
+        return model, _up(_head_params(cfg, params)), x
 
 
 def _up(tree):
@@ -1253,20 +1284,26 @@ def _k4_timing(cuda, rng):
     inputs = _scan_inputs(rng, b, s, d_in, n, cuda)
     probe = _ex2_probe(cuda)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
+    return dict(
+        shape=dict(B=b, S=s, d_in=d_in, N=n, dtype="float32"),
+        ms=_time_ms(lambda: ops.mamba_scan(*inputs), flush=flush),
+        ms_l2_warm=_time_ms(lambda: ops.mamba_scan(*inputs)),
+        plain_ms=_time_ms(lambda: ref.mamba_scan_ref(*inputs), flush=flush),
+        library_ms=None, **_k4_bound(b, s, d_in, n), **probe)
+
+
+def _k4_bound(b, s, d_in, n):
+    """K4's bound at ``[b, s, d_in]`` × ``[d_in, n]``: its inputs read and
+    y written once at the HBM rate, or its float32 operations and its
+    exponentials at the special-function units' rate, the larger."""
     nbytes = 4 * (3 * b * s * d_in + d_in * n + 2 * b * s * n)
     n_exp = b * s * d_in * n
     flops = b * s * d_in * (1 + 6 * n)  # Δx; per state Δ·A, ⊙h, ·B, +, ·C, Σ
     bound = {"bytes": nbytes / HBM_BYTES_S,
              "operations": max(flops / F32_FLOP_S, n_exp / SFU_EXP_S)}
     by = max(bound, key=bound.get)
-    return dict(
-        shape=dict(B=b, S=s, d_in=d_in, N=n, dtype="float32"),
-        ms=_time_ms(lambda: ops.mamba_scan(*inputs), flush=flush),
-        ms_l2_warm=_time_ms(lambda: ops.mamba_scan(*inputs)),
-        plain_ms=_time_ms(lambda: ref.mamba_scan_ref(*inputs), flush=flush),
-        library_ms=None, bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes,
-        flops=flops, exps=n_exp, flops_ms=flops / F32_FLOP_S * 1e3,
-        exps_ms=n_exp / SFU_EXP_S * 1e3, **probe)
+    return dict(bound_ms=bound[by] * 1e3, bound_by=by, bytes=nbytes, flops=flops, exps=n_exp,
+                flops_ms=flops / F32_FLOP_S * 1e3, exps_ms=n_exp / SFU_EXP_S * 1e3)
 
 
 def _ex2_probe(cuda):
@@ -2963,7 +3000,10 @@ SHARDED_TOL = 1e-4
 # another order than one rank's product, so the gate is relative to the
 # one-rank bf16 logits' own distance from float32.
 SHARDED_BF16_FACTOR = 1.5
-SHARDED_REPS = 1                  # timed repeats of each step after the counted call
+# Timed repeats of each step after the counted call; none on (2, 2) in bf16,
+# whose prefill and loss each take 15–16 s a rank in gloo, for the script's
+# time.
+SHARDED_REPS = 1
 # (e), (f): decode ticks under ACT_RULES_DECODE (the caches' positions over
 # ``model``) after the prefill, into caches of DECODE_S_MAX positions,
 # teacher-forced with the one-rank model's greedy tokens; then one tick on
@@ -3019,7 +3059,7 @@ def _sharded_references(cfg, prompts, loss_tokens, long_token, dev):
             out[key]["logits_f32"] = _prefill_logits_f32(cfg, params, prompts, dev).cpu()
             out[key]["loss_f32"] = _loss_f32(cfg, params, loss_tokens, dev)
             out[key]["ticks_f32"] = _ticks_f32(cfg, params, prompts, fed, dev).cpu()
-            out[key]["long_f32"] = _long_tick_f32(cfg, params, long_token, dev).cpu()
+            out[key]["long_f32"] = _seeded_tick_f32(cfg, params, long_token, LONG, dev).cpu()
         del params
         _free()
     return out
@@ -3036,34 +3076,33 @@ def _ticks_f32(cfg, params, prompts, fed, dev):
         return model._head(head, x[:, prompts.shape[1]:]).transpose(0, 1)
 
 
-def _long_tick_f32(cfg, params, token, dev):
-    """LONG's tick in float32 throughout, layer by layer: each layer's bf16
-    weights upcast, its cache slabs drawn from LONG's seed
-    (``launch/sharded.py::cache_slab``), rounded to the compute dtype as
-    the ranks hold them and upcast, and dropped after the layer; the whole
+def _seeded_tick_f32(cfg, params, token, spec, dev):
+    """One tick in float32 throughout on the caches ``spec`` (``b``,
+    ``s_max``, ``pos``, ``seed``) draws, layer by layer: each layer's bf16
+    weights upcast, its cache slabs drawn from the seed
+    (``launch/sharded.py::cache_slab``), rounded to the dtype the ranks
+    hold them in and upcast, and dropped after the layer; the whole
     float32 cache is never held → ``[B, V]``."""
     import torch
 
-    from repro_torch.launch.sharded import cache_slab
+    from repro_torch.launch.sharded import cache_dtype, cache_slab
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import Model
-    from repro_torch.models.params import dtype_of
 
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla")
     model = Model(cfg32)
-    dtype = dtype_of(cfg.compute_dtype)
+    decls = Model(cfg).cache_defs(spec["b"], spec["s_max"])
     with torch.no_grad():
         x = params["embed"][torch.as_tensor(token, device=dev).long()].float()
-        rope = model._rope(torch.tensor([LONG["pos"]], device=dev))
+        rope = model._rope(torch.tensor([spec["pos"]], device=dev))
         mixer, ffn = tf._slot_kind(cfg, 0)
         for li in range(cfg.n_layers):
             lp = _up(tf._index_tree(params["stack"], li))
-            cache = {w: cache_slab(cfg, LONG["b"], LONG["s_max"], LONG["seed"], li, w,
-                                   dev).to(dtype).float() for w in ("k", "v")}
-            x = tf._apply_layer_decode(lp, x, cfg32, rope, mixer, ffn, cache, LONG["pos"])
+            cache = {w: cache_slab(cfg, spec["b"], spec["s_max"], spec["seed"], li, w, dev)
+                     .to(cache_dtype(cfg, decl)).float() for w, decl in decls.items()}
+            x = tf._apply_layer_decode(lp, x, cfg32, rope, mixer, ffn, cache, spec["pos"])
             del cache, lp
-        return model._head(_up({"ln_f": params["ln_f"], "lm_head": params["lm_head"]}),
-                           x)[:, 0]
+        return model._head(_up(_head_params(cfg, params)), x)[:, 0]
 
 
 def _sharded_decode(ranks, case, ccfg, mesh, ref, label, fails):
@@ -3163,12 +3202,13 @@ def phase_sharded(free_before):
                           decode=[dict(tokens=ref["f32"]["fed"]), long],
                           loss=dict(tokens=prompts)))
     for mesh in SHARDED_MESHES:
+        reps = SHARDED_REPS if mesh == (1, 4) else 0
         case = dict(mesh=mesh, cfg=full, prefill=dict(tokens=prompts, s_max=DECODE_S_MAX,
-                                                      reps=SHARDED_REPS))
+                                                      reps=reps))
         if mesh == (1, 4):
             case["decode"] = [dict(tokens=ref["bf16"]["fed"]), long]
         if mesh == (2, 2):
-            case["loss"] = dict(tokens=loss_tokens, reps=SHARDED_REPS)
+            case["loss"] = dict(tokens=loss_tokens, reps=reps)
         cases.append(case)
     t1 = time.perf_counter()
     res = run_ranks("repro_torch.launch.sharded:run", 4,
@@ -3263,11 +3303,13 @@ def phase_sharded(free_before):
 # PERF.md's findings: with the step donating its parameters and optimizer
 # state, a rank holds about 16 B for each of its (L·272 M + 1.34 G) / 4
 # elements (bf16 parameters and a microbatch's gradient, f32 accumulation,
-# m and v), 11.9 GB at 6 layers, and the one-rank comparison 47.6 GB.
+# m and v), 11.9 GB at 6 layers, and the one-rank comparison 47.6 GB; 4
+# layers for the script's time (a (2, 2) bf16 step took 27–34 s a rank at
+# 6).
 TRAIN_MESHES = (((2, 2), "baseline"), ((1, 4), "opt"))
 TRAIN_SHAPE = (4, 1024)           # the batch
 TRAIN_ACCUM = 2                   # microbatches of 2 × 1 024
-TRAIN_LAYERS = dict(bf16=6, f32=2)
+TRAIN_LAYERS = dict(bf16=4, f32=2)
 TRAIN_STEPS = 2
 TRAIN_EVAL_SHAPE = (2, 512)       # the eval through K2 after the bf16 steps
 TRAIN_LIMIT = 900                 # seconds for the multi-rank run
@@ -3277,7 +3319,7 @@ TRAIN_LIMIT = 900                 # seconds for the multi-rank run
 # itself, every leaf of m within TRAIN_M_REL of the leaf's largest |m|.
 TRAIN_TOL = 1e-4
 TRAIN_M_REL = 1e-3
-# bf16 at 6 layers: the ranks sum bf16 gradient shares in another order
+# bf16 at 4 layers: the ranks sum bf16 gradient shares in another order
 # than one rank's products: each step's loss within TRAIN_BF16_LOSS, its
 # grad norm within TRAIN_BF16_NORM of itself; the eval through K2 on the
 # updated shards within TRAIN_BF16_LOSS of the one-rank model's.
@@ -3470,6 +3512,400 @@ def phase_sharded_train(free_before):
     return out
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+# falcon-mamba-7b sharded over 4 ranks of the one card (``launch/sharded.py``;
+# gloo, host-staged, as phases 12–14): each layer's mamba block on the rank's
+# block of d_inner (``d_inner`` over ``model`` under PARAM_RULES and
+# ACT_RULES_DECODE), the tied head on the embedding's vocab-parallel block.
+# (a) f32 at 2 layers on (1, 4) and (2, 2): the prefill of phase 6's prompt
+# shape (2 × 512, falcon's vocabulary), the loss of SSM["loss"], the
+# prefill's states handed to SSM["ticks"]["f32"] ticks forced with one
+# rank's greedy tokens, and on (2, 2) a two-step train step (accum 2) under
+# the baseline; (b) bf16 at all 64 layers on (1, 4): the prefill against
+# float32, the eval through K4 on each rank's 2 048 channels, 8 ticks, one
+# tick at decode_32k's shape (B 128) and one at long_500k's (B 1, pos
+# 524 287), each on states drawn from a seed (``seeded_caches``); (c) a bf16
+# train step on (1, 4) under ``opt`` (ACT_RULES_TRAIN_OPT at 7.0 G
+# parameters) at SSM["train_layers"] (the memory reckoning and the script's
+# time, PERF.md: 8 layers took 17–18 s a rank on the ranks).  No (2, 2) bf16 run at 64 layers: its weight gathers over
+# ``data`` would move about 3.5 GB a rank a pass through host memory.
+SSM = dict(arch="falcon-mamba-7b", meshes=((1, 4), (2, 2)), prompts=2, prompt_len=512,
+           loss=(2, 1024), ticks=dict(f32=4, bf16=8), train=(4, 1024), accum=2, steps=2,
+           train_layers=4, limit=900)
+SSM_SEEDED = dict(decode_32k=dict(b=128, s_max=0, pos=32_000, seed=SEED + 41),
+                  long_500k=dict(b=1, s_max=0, pos=524_287, seed=SEED + 43))
+# (e) K4 at the ranks' shapes: d_in 8 192 over model 4 and 2.
+SSM_K4_SHAPES = [(2, 1024, 2048, 16), (2, 1024, 4096, 16)]
+# Gates, fixed before the first run: (a) f32 against one rank within
+# SHARDED_TOL; the train step's as phase 14's (a).  (b) bf16: the prefill's
+# logits and each tick no farther from float32 than SHARDED_BF16_FACTOR ×
+# the one-rank bf16 distance, the first tokens equal; K4 launched once a
+# layer on each rank.  (c) as phase 14's (b): loss within TRAIN_BF16_LOSS,
+# grad norm TRAIN_BF16_NORM.  The eval's closeness is gated in float32 at
+# full depth: the ranks' loss through K4 within SHARDED_TOL of one rank's
+# time loop (SSM_EVAL_F32).  The bf16 eval's distance from one rank's time
+# loop is reported, not gated: its first two runs were 1.52e-3 and 1.72e-3
+# against a bound of 1e-3, and tests/ssm_rounding_probe.py shows any
+# reordering of the bf16 sums (K4 against the loop, blocks of d_inner)
+# moving this 64-layer loss by up to 1.8e-3, either way (PERF.md).
+SSM_EVAL_F32 = dict(param_dtype="float32", compute_dtype="float32")
+
+
+def _ssm_references(cfg, prompts, loss_tokens, seeded_tokens, dev):
+    """The one-rank model on the card, the parameters from SEED: (a) f32 at
+    2 layers, the prefill logits, SSM["ticks"]["f32"] greedy ticks (tokens
+    fed and logits) and the loss; (b) bf16 at full depth, the prefill
+    logits, 8 greedy ticks, the loss through the time loop and a tick on
+    each of SSM_SEEDED's states, each also in float32 throughout, and the
+    loss through K4; float32 parameters at full depth, the loss through the
+    time loop."""
+    import torch
+
+    from repro_torch.launch.sharded import seeded_caches
+    from repro_torch.models.model import Model
+
+    out = {}
+    cfg2 = cfg.with_(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    for key, c in (("f32", cfg2), ("bf16", cfg)):
+        model = Model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        with torch.no_grad():
+            logits, caches = model.prefill(params, {"tokens": torch.as_tensor(prompts, device=dev)
+                                                    .long()}, prompts.shape[1])
+            fed, ticks, last = [], [], logits
+            for t in range(SSM["ticks"][key]):
+                fed.append(last.argmax(-1)[:, None])
+                last, caches = model.decode(params, fed[-1], prompts.shape[1] + t, caches)
+                ticks.append(last.float().cpu())
+            del caches
+            loss, _ = model.loss(params, {"tokens": torch.as_tensor(loss_tokens, device=dev)
+                                          .long()})
+        fed = torch.cat(fed, 1).cpu().numpy()
+        out[key] = dict(logits=logits.float().cpu(), loss=float(loss), fed=fed,
+                        ticks=torch.stack(ticks))
+        if key == "bf16":
+            for name, spec in SSM_SEEDED.items():
+                tok = torch.as_tensor(seeded_tokens[name], device=dev).long()
+                with torch.no_grad():
+                    caches = seeded_caches(model, spec["b"], 0, spec["seed"], dev)
+                    out[key][name] = model.decode(params, tok, spec["pos"], caches)[0].float().cpu()
+                del caches
+                out[key][name + "_f32"] = _seeded_tick_f32(cfg, params, seeded_tokens[name],
+                                                           spec, dev).cpu()
+            out[key]["logits_f32"] = _prefill_logits_f32(cfg, params, prompts, dev).cpu()
+            out[key]["ticks_f32"] = _ticks_f32(cfg, params, prompts, fed, dev).cpu()
+            batch = {"tokens": torch.as_tensor(loss_tokens, device=dev).long()}
+            with torch.no_grad():
+                k4 = Model(c.with_(ssm_impl="pallas")).loss(params, batch)[0]
+            out[key]["loss_k4"] = float(k4)
+            out[key]["loss_f32"] = _loss_f32(cfg, params, loss_tokens, dev)
+        del params
+        _free()
+    model = Model(cfg.with_(**SSM_EVAL_F32))
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    with torch.no_grad():
+        loss, _ = model.loss(params, {"tokens": torch.as_tensor(loss_tokens, device=dev).long()})
+    out["eval_f32"] = float(loss)
+    del params
+    _free()
+    return out
+
+
+def _ssm_k4(cuda):
+    """(e): K4 against its plain version at the ranks' shapes, and its time
+    beside the plain version's and its bound."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 47)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
+    out = {}
+    for b, s, d_in, n in SSM_K4_SHAPES:
+        inputs = _scan_inputs(rng, b, s, d_in, n, cuda)
+        err = float((ops.mamba_scan(*inputs) - ref.mamba_scan_ref(*inputs)).abs().max())
+        out[d_in] = dict(shape=dict(B=b, S=s, d_in=d_in, N=n), max_abs_err=err,
+                         tolerance=SCAN_TOL,
+                         ms=_time_ms(lambda: ops.mamba_scan(*inputs), flush=flush),
+                         plain_ms=_time_ms(lambda: ref.mamba_scan_ref(*inputs), reps=5,
+                                           flush=flush),
+                         library_ms=None, **_k4_bound(b, s, d_in, n))
+        del inputs
+    return out
+
+
+def _ssm_serve_checks(ranks, case, ccfg, ref, label, fails):
+    """(a)/(b)/(d)/(f) of a prefill, decode and loss case → its report."""
+    import torch
+
+    from repro_torch.distributed.sharding import decode_rules
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharded import assemble_logits, assemble_tick, sharded_collectives
+
+    err = lambda a, c: float((a - c).abs().max())  # noqa: E731
+    key = "bf16" if ccfg.compute_dtype == "bfloat16" else "f32"
+    size = 2 if key == "bf16" else 4
+    mesh = dict(zip(("data", "model"), case["mesh"]))
+    rules = ranks[0]["rules"]
+    b, v = case["prefill"]["tokens"].shape[0], ccfg.vocab_size
+    want = {step: sharded_collectives(ccfg, mesh, rules, *case[step]["tokens"].shape, size,
+                                      size, step, param_rules=ranks[0]["param_rules"])
+            for step in ("prefill", "loss")}
+    for step, ops in want.items():
+        if any(r[step]["ops"] != ops for r in ranks):
+            fails.append(f"(d) {label} {step}: a rank's ops differ from the formula")
+    logits = assemble_logits(ranks, b, v)
+    out = dict(
+        collectives={step: dict(count=len(ops), wire_bytes=report_of(ops).by_kind())
+                     for step, ops in want.items()},
+        prefill_ms=[r["prefill"]["ms"] for r in ranks],
+        prefill_staging_s=[r["prefill"]["staging_s"] for r in ranks],
+        loss_ms=[r["loss"]["ms"] for r in ranks],
+        loss_staging_s=[r["loss"]["staging_s"] for r in ranks],
+        losses=[r["loss"]["loss"] for r in ranks],
+        k4_launches=[r["loss"]["k4_launches"] for r in ranks],
+        prefill_k4_launches=[r["prefill"]["k4_launches"] for r in ranks],
+        init_s=[r["init_s"] for r in ranks],
+        params_allocated=[r["params_allocated"] for r in ranks],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        state_block=[tuple(r["prefill"]["caches"]["h"].shape) for r in ranks],
+        finite=bool(torch.isfinite(logits).all()) and all(np.isfinite(r["loss"]["loss"])
+                                                          for r in ranks))
+    if key == "f32":
+        out.update(logits_err=err(logits, ref["f32"]["logits"]),
+                   loss_err=max(abs(r["loss"]["loss"] - ref["f32"]["loss"]) for r in ranks),
+                   tolerance=SHARDED_TOL)
+        if not (out["logits_err"] <= SHARDED_TOL and out["loss_err"] <= SHARDED_TOL):
+            fails.append(f"(a) {label}: logits {out['logits_err']}, loss {out['loss_err']}")
+    else:
+        l32, l16 = ref["bf16"]["logits_f32"], ref["bf16"]["logits"]
+        out.update(ranks_vs_f32=err(logits, l32), one_rank_vs_f32=err(l16, l32),
+                   ranks_vs_one_rank=err(logits, l16), first_tokens=logits.argmax(-1).tolist(),
+                   first_tokens_one_rank=l16.argmax(-1).tolist(),
+                   eval_one_rank_loop=ref["bf16"]["loss"], eval_one_rank_k4=ref["bf16"]["loss_k4"],
+                   eval_float32=ref["bf16"]["loss_f32"])
+        loop, k4, f32 = (ref["bf16"][k] for k in ("loss", "loss_k4", "loss_f32"))
+        out.update(eval_vs_one_rank_loop=max(abs(g - loop) for g in out["losses"]),
+                   eval_vs_one_rank_k4=max(abs(g - k4) for g in out["losses"]),
+                   eval_vs_float32=max(abs(g - f32) for g in out["losses"]),
+                   one_rank_loop_vs_float32=abs(loop - f32), one_rank_k4_vs_float32=abs(k4 - f32))
+        if not out["ranks_vs_f32"] <= SHARDED_BF16_FACTOR * out["one_rank_vs_f32"]:
+            fails.append(f"(b) {label}: prefill {out['ranks_vs_f32']} from float32 against "
+                         f"one rank's {out['one_rank_vs_f32']}")
+        if out["first_tokens"] != out["first_tokens_one_rank"]:
+            fails.append(f"(b) {label}: first tokens {out['first_tokens']}")
+        if any(k != ccfg.n_layers for k in out["k4_launches"]):
+            fails.append(f"(b) {label}: K4 launched {out['k4_launches']} times an eval of "
+                         f"{ccfg.n_layers} layers")
+    if not out["finite"] or any(out["prefill_k4_launches"]):
+        fails.append(f"{label}: finite {out['finite']}, K4 in the prefill "
+                     f"{out['prefill_k4_launches']} (it collects the state: the time loop)")
+    drules = decode_rules(Mesh(tuple(mesh), tuple(mesh.values())))
+    names = ["ticks"] + (list(SSM_SEEDED) if key == "bf16" else [])
+    out["decode"] = {}
+    for j, name in enumerate(names):
+        bt = case["decode"][j]["tokens"].shape[0]
+        want = sharded_collectives(ccfg, mesh, drules, bt, 1, size, size, "decode")
+        if any(ops != want for r in ranks for ops in r["decode"][j]["ops"]):
+            fails.append(f"(d) {label} decode {name}: a rank's ops differ from the formula")
+        n = len(ranks[0]["decode"][j]["ms"])
+        got = [assemble_tick(ranks, j, t, bt, v) for t in range(n)]
+        refs = ref[key]["ticks"] if name == "ticks" else ref[key][name][None]
+        rep = dict(batch=bt, pos=ranks[0]["decode"][j]["pos"],
+                   ms=[r["decode"][j]["ms"] for r in ranks],
+                   d_inner_block=[r["decode"][j]["kv"] for r in ranks],
+                   collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+                   max_memory_allocated=[r["decode"][j]["max_memory_allocated"] for r in ranks],
+                   staging_s=[r["decode"][j]["staging_s"] for r in ranks],
+                   finite=all(bool(torch.isfinite(g).all()) for g in got))
+        if key == "f32":
+            rep.update(errs=[err(g, w) for g, w in zip(got, refs)], tolerance=SHARDED_TOL)
+            if not max(rep["errs"]) <= SHARDED_TOL:
+                fails.append(f"(a) {label} decode {name}: {rep['errs']} against one rank")
+        else:
+            f32 = ref[key]["ticks_f32"] if name == "ticks" else ref[key][name + "_f32"][None]
+            rep.update(ranks_vs_f32=[err(g, w) for g, w in zip(got, f32)],
+                       one_rank_vs_f32=[err(o, w) for o, w in zip(refs, f32)],
+                       ranks_vs_one_rank=[err(g, o) for g, o in zip(got, refs)],
+                       bound_factor=SHARDED_BF16_FACTOR)
+            if any(a > SHARDED_BF16_FACTOR * o for a, o in zip(rep["ranks_vs_f32"],
+                                                               rep["one_rank_vs_f32"])):
+                fails.append(f"(b) {label} decode {name}: {rep['ranks_vs_f32']} from float32 "
+                             f"against one rank's {rep['one_rank_vs_f32']}")
+        rep["greedy_shared_with_one_rank"] = sum(
+            int((g.argmax(-1) == o.argmax(-1)).sum()) for g, o in zip(got, refs))
+        rep["greedy_of"] = sum(int(g.shape[0]) for g in got)
+        if not rep["finite"]:
+            fails.append(f"{label} decode {name}: not finite")
+        out["decode"][name] = rep
+    return out
+
+
+def _ssm_train_checks(ranks, case, c, refs, label, fails):
+    """(a)/(c)/(d)/(f) of a train case against the one-rank steps."""
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.sharded import sharded_collectives
+
+    key = "bf16" if c.compute_dtype == "bfloat16" else "f32"
+    size = 2 if key == "bf16" else 4
+    mesh_shape = dict(zip(("data", "model"), case["mesh"]))
+    r0 = ranks[0]
+    want = sharded_collectives(c, mesh_shape, r0["rules"], *SSM["train"], size, size, "train",
+                               SSM["accum"], r0["param_rules"])
+    if any(r["train"]["ops"] != want for r in ranks):
+        fails.append(f"(d) {label}: a rank's train ops differ from the formula")
+    loss_err = max(abs(a - b) for r in ranks for a, b in zip(r["train"]["loss"], refs["loss"]))
+    norm_err = max(abs(a - b) / b for r in ranks
+                   for a, b in zip(r["train"]["grad_norm"], refs["grad_norm"]))
+    out = dict(rules=r0["rules"], param_rules=r0["param_rules"],
+               losses=[r["train"]["loss"] for r in ranks],
+               grad_norms=[r["train"]["grad_norm"] for r in ranks],
+               one_rank=dict(loss=refs["loss"], grad_norm=refs["grad_norm"],
+                             max_memory_allocated=refs["max_memory_allocated"],
+                             seconds=refs["seconds"]),
+               step_ms=[r["train"]["ms"] for r in ranks],
+               k4_launches=[r["train"]["k4_launches"] for r in ranks],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               init_s=[r["init_s"] for r in ranks],
+               params_allocated=[r["params_allocated"] for r in ranks],
+               max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+               loss_err=loss_err, grad_norm_rel_err=norm_err)
+    finite = all(np.isfinite(r["train"]["loss"] + r["train"]["grad_norm"]).all() for r in ranks)
+    if key == "f32":
+        m_err = _m_errors(ranks, case["mesh"], refs["m"], r0["param_rules"], c)
+        out.update(m_rel_err=m_err, tolerance=dict(loss=TRAIN_TOL, grad_norm=TRAIN_TOL,
+                                                   m=TRAIN_M_REL))
+        if not (loss_err <= TRAIN_TOL and norm_err <= TRAIN_TOL
+                and max(m_err.values()) <= TRAIN_M_REL and finite):
+            fails.append(f"(a) {label}: loss {loss_err}, grad norm {norm_err}, m "
+                         f"{max(m_err.values())} against one rank")
+    else:
+        out["tolerance"] = dict(loss=TRAIN_BF16_LOSS, grad_norm=TRAIN_BF16_NORM)
+        if not (loss_err <= TRAIN_BF16_LOSS and norm_err <= TRAIN_BF16_NORM and finite):
+            fails.append(f"(c) {label}: loss {loss_err}, grad norm {norm_err} against one rank")
+    if any(out["k4_launches"]):
+        fails.append(f"{label}: K4 launched {out['k4_launches']} times in the train steps "
+                     "(they take the time loop)")
+    return out
+
+
+def _ssm_eval_f32(ranks, cfg, ref, fails):
+    """(b) in float32: the ranks' eval through K4 at full depth against one
+    rank's time loop; (d) its ops; (f) its times."""
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.sharded import sharded_collectives
+
+    c = cfg.with_(**SSM_EVAL_F32)
+    want = sharded_collectives(c, dict(data=1, model=4), ranks[0]["rules"], *SSM["loss"], 4, 4,
+                               "loss")
+    out = dict(losses=[r["loss"]["loss"] for r in ranks], one_rank_loop=ref["eval_f32"],
+               err=max(abs(r["loss"]["loss"] - ref["eval_f32"]) for r in ranks),
+               tolerance=SHARDED_TOL, k4_launches=[r["loss"]["k4_launches"] for r in ranks],
+               ms=[r["loss"]["ms"] for r in ranks],
+               staging_s=[r["loss"]["staging_s"] for r in ranks],
+               params_allocated=[r["params_allocated"] for r in ranks],
+               max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()))
+    if any(r["loss"]["ops"] != want for r in ranks):
+        fails.append("(d) eval f32: a rank's ops differ from the formula")
+    if not out["err"] <= SHARDED_TOL:
+        fails.append(f"(b) eval f32: through K4 {out['err']} from one rank's time loop")
+    if any(k != c.n_layers for k in out["k4_launches"]):
+        fails.append(f"(b) eval f32: K4 launched {out['k4_launches']} times for {c.n_layers} "
+                     "layers")
+    return out
+
+
+def phase_sharded_ssm(free_before):
+    """Phase 15: falcon-mamba-7b sharded over 4 ranks of one card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.serve import make_requests
+
+    t0 = time.perf_counter()
+    released = [_card_released(free_before)]
+    cuda = torch.device("cuda", 0)
+    arch = SSM["arch"]
+    cfg = get_config(arch)
+    rng = np.random.default_rng(SEED + 15)
+    prompts = np.stack([r.prompt for r in make_requests(cfg, SSM["prompts"], SSM["prompt_len"],
+                                                        1, SEED)])
+    loss_tokens = rng.integers(0, cfg.vocab_size, SSM["loss"])
+    train_tokens = rng.integers(0, cfg.vocab_size, SSM["train"])
+    seeded_tokens = {name: rng.integers(0, cfg.vocab_size, (spec["b"], 1))
+                     for name, spec in SSM_SEEDED.items()}
+    k4 = _ssm_k4(cuda)
+    ref = _ssm_references(cfg, prompts, loss_tokens, seeded_tokens, cuda)
+    ref_s = time.perf_counter() - t0
+    released.append(_card_released(free_before))
+
+    f32 = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    cases = [dict(mesh=mesh, cfg=f32, prefill=dict(tokens=prompts),
+                  decode=[dict(tokens=ref["f32"]["fed"])], loss=dict(tokens=loss_tokens))
+             for mesh in SSM["meshes"]]
+    cases.append(dict(mesh=(2, 2), cfg=f32, train=dict(tokens=train_tokens, accum=SSM["accum"],
+                                                         steps=SSM["steps"], host=("m",))))
+    seeded = [dict(tokens=seeded_tokens[name], seed=spec["seed"], s_max=0, pos=spec["pos"])
+              for name, spec in SSM_SEEDED.items()]
+    cases.append(dict(mesh=(1, 4), cfg={}, prefill=dict(tokens=prompts),
+                      decode=[dict(tokens=ref["bf16"]["fed"])] + seeded,
+                      loss=dict(tokens=loss_tokens, cfg=dict(ssm_impl="pallas"))))
+    f32_eval = len(cases)
+    cases.append(dict(mesh=(1, 4), cfg=SSM_EVAL_F32,
+                      loss=dict(tokens=loss_tokens, cfg=dict(ssm_impl="pallas"))))
+    train_layers = dict(n_layers=SSM["train_layers"])
+    cases.append(dict(mesh=(1, 4), policy="opt", cfg=train_layers,
+                      train=dict(tokens=train_tokens, accum=SSM["accum"], steps=SSM["steps"],
+                                 host=())))
+    t1 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run", 4,
+                    dict(device="cuda:0", arch=arch, seed=SEED, cases=cases),
+                    timeout_s=SSM["limit"],
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t1
+    released.append(_card_released(free_before))
+
+    out = dict(arch=arch, prompts=list(prompts.shape), loss_shape=list(SSM["loss"]),
+               ticks=SSM["ticks"], seeded=SSM_SEEDED, train_batch=list(SSM["train"]),
+               accum=SSM["accum"], steps=SSM["steps"], train_layers=SSM["train_layers"],
+               reference_s=ref_s, ranks_s=ranks_s, k4_rank_shapes=k4,
+               reference_losses=dict(f32_2_layers=ref["f32"]["loss"], bf16=ref["bf16"]["loss"]))
+    fails = [f"(e) K4 at d_in {d}: {e['max_abs_err']} from its plain version"
+             for d, e in k4.items() if not e["max_abs_err"] <= SCAN_TOL]
+    for i, case in enumerate(cases):
+        if "train" in case or "prefill" not in case:
+            continue
+        ranks = [r[i] for r in res]
+        ccfg = cfg.with_(**case["cfg"])
+        label = (f"{'bf16' if 'n_layers' not in case['cfg'] else 'f32'}_"
+                 f"{case['mesh'][0]}x{case['mesh'][1]}")
+        out[label] = _ssm_serve_checks(ranks, case, ccfg, ref, label, fails)
+    out["eval_f32"] = _ssm_eval_f32([r[f32_eval] for r in res], cfg, ref, fails)
+    del ref
+    _free()
+    for i, case in enumerate(cases):
+        if "train" not in case:
+            continue
+        ranks = [r[i] for r in res]
+        c = cfg.with_(**case["cfg"])
+        key = "bf16" if c.compute_dtype == "bfloat16" else "f32"
+        label = f"train_{key}_{case['mesh'][0]}x{case['mesh'][1]}_{case.get('policy', 'baseline')}"
+        refs = _train_reference(c, train_tokens, None, SSM["steps"], SSM["accum"], cuda)
+        out[label] = _ssm_train_checks(ranks, case, c, refs, label, fails)
+        del refs
+        _free()
+    out["released_s"] = released
+    out["phase_s"] = time.perf_counter() - t0
+    log("sharded_ssm", **out)
+    if fails:
+        raise AssertionError(f"phase 15: {fails}")
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -3537,8 +3973,13 @@ def main() -> int:
         phase_device()
         phase_sharded(torch.cuda.mem_get_info()[0])
         return 0
+    if sys.argv[1:] == ["--sharded-ssm"]:
+        phase_device()
+        phase_sharded_ssm(torch.cuda.mem_get_info()[0])
+        return 0
     if sys.argv[1:]:
-        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded "
+                         "| --sharded-ssm]")
     name, smi = phase_device()
     timing = phase_kernels()
     main_cuda = phase_main_path()
@@ -3553,6 +3994,7 @@ def main() -> int:
     expert = phase_expert()
     sharded = phase_sharded(expert["free_bytes"])
     sharded_train = phase_sharded_train(expert["free_bytes"])
+    sharded_ssm = phase_sharded_ssm(expert["free_bytes"])
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -3601,6 +4043,12 @@ def main() -> int:
         "launches_note": "on the eval path (16 layers); the train step takes the "
                          "plain scan, as the reference's must (K4 has no backward)",
         "launches_hybrid_eval_path": models["hybrid"]["eval"]["launches"]["mamba_scan"],
+        "launches_sharded_eval_path": sharded_ssm["bf16_1x4"]["k4_launches"],
+        "launches_sharded_note": "on each of the 4 ranks of phase 15's bf16 eval (64 layers, "
+                                 "d_in 2 048 a rank); 0 in its prefills, ticks and train steps",
+        "sharded_rank_shapes": {str(d): {k: e[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                            "bound_ms", "bound_by")}
+                                for d, e in sharded_ssm["k4_rank_shapes"].items()},
         "max_abs_err": train["scan"]["max_abs_err"],
         "ms": train["scan"]["ms"],
         "plain_ms": train["scan"]["plain_ms"],

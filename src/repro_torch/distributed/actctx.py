@@ -11,8 +11,9 @@ that resolves on a larger mesh raises.
 
 On a rank mesh (``launch/mesh.py::_make_mesh``) each rank holds its block
 of every tensor, and the layers move the blocks themselves.  Two readers
-act on the context there.  The dense model (``models/model.py``) takes
-its sharded path under the rules' layout of the residual stream
+act on the context there.  The dense and SSM models
+(``models/model.py``) take their sharded path under the rules' layout of
+the residual stream
 (:func:`rank_layout`: the batch over the rules' ``batch`` axes, the
 sequence over ``model`` where the rules put it there), each parameter a
 block by the context's ``param_rules`` (``PARAM_RULES``, or the small-DP
@@ -20,7 +21,8 @@ policy's ``{}``: every leaf whole); the :class:`RankLayout` it hands the
 layers issues that path's collectives.  Under the decode rules
 (``sharding.decode_rules``) the same layout holds one token a row, the
 sequence whole, and :func:`cache_layout` adds the decode cache's block of
-positions (``kv_seq`` over ``model``) to it.  The MoE block with
+positions (``kv_seq`` over ``model``), or of the mamba states' channels
+(``d_inner`` over ``model``), to it.  The MoE block with
 ``moe_impl="a2a"`` takes the expert-parallel dispatch, which cuts its
 input by the rules' ``batch`` and ``seq`` entries itself
 (``models/moe.py::a2a_layout``).  ``constrain`` on a rank mesh returns
@@ -127,7 +129,7 @@ def constrain(
 
 @dataclass(frozen=True)
 class RankLayout:
-    """Where a dense model's tensors lie on the ranks of a rank mesh.
+    """Where a dense or SSM model's tensors lie on the ranks of a rank mesh.
 
     The residual stream ``[B, S, d]`` is split along the batch over the
     mesh axes ``batch`` (``()``: every rank holds the whole batch) and,
@@ -135,8 +137,9 @@ class RankLayout:
     holds rows ``b0:b0 + b_loc`` and positions ``s0:s0 + s_loc``.  Each
     parameter is this rank's block by ``param_rules``: under
     ``PARAM_RULES`` heads, kv heads, ``d_ff`` and the vocabulary split
-    over ``model`` where they divide it (the layers read which from the
-    blocks' shapes), ``d_model`` over ``data`` (FSDP), gathered by
+    and ``d_inner`` over ``model`` where they divide it (the layers read
+    which from the blocks' shapes), ``d_model`` over ``data`` (FSDP),
+    gathered by
     :meth:`gather_params` just before use; under the small-DP policy's
     ``{}`` every leaf whole.  Every method issues its collectives through
     ``distributed/collectives.py``, counted under ``path``.
@@ -144,7 +147,13 @@ class RankLayout:
     A decode layout (:func:`cache_layout`) also places the caches ``[L,
     B, s_max, nkv, hd]``: this rank's rows of the batch, as the residual
     stream's, and when ``kv_sharded`` its block of positions ``kv0:kv0 +
-    kv_loc`` over ``model`` (else every position), of every kv head."""
+    kv_loc`` over ``model`` (else every position), of every kv head; an
+    SSM's, the mamba states ``[L, B, k - 1, d_inner]`` and ``[L, B,
+    d_inner, N]``: its rows, and when ``di_sharded`` its block of channels
+    ``di0:di0 + di_loc`` over ``model``, the parameters' block (else
+    every channel).  A ``stationary`` decode layout keeps the parameters'
+    ``d_model`` blocks in place, where the batch does not split over
+    ``data`` (:meth:`d_block`, :meth:`contract`, :meth:`whole_d`)."""
 
     mesh: Any
     batch: Tuple[str, ...]
@@ -154,6 +163,9 @@ class RankLayout:
     param_rules: Dict[str, Any]
     s_max: int = 0
     kv_sharded: bool = False
+    d_inner: int = 0
+    di_sharded: bool = False
+    stationary: bool = False
 
     @property
     def n_model(self) -> int:
@@ -189,9 +201,40 @@ class RankLayout:
     def kv0(self) -> int:
         return self.mi * self.kv_loc if self.kv_sharded else 0
 
+    @property
+    def di_loc(self) -> int:
+        return self.d_inner // self.n_model if self.di_sharded else self.d_inner
+
+    @property
+    def di0(self) -> int:
+        return self.mi * self.di_loc if self.di_sharded else 0
+
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole-batch tensor."""
         return x[self.b0:self.b0 + self.b_loc]
+
+    def d_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x``'s last dimension (``d_model``) over
+        ``data``."""
+        n = x.shape[-1] // self.mesh.shape.get("data", 1)
+        i = self.mesh.coords.get("data", 0)
+        return x[..., i * n:(i + 1) * n]
+
+    def contract(self, x: torch.Tensor, w: torch.Tensor, path: str) -> torch.Tensor:
+        """``x @ w`` over ``d_model`` of ``x``, this rank's block of it
+        (:meth:`d_block`), and ``w``, this rank's block of its rows: the
+        float32 partial products summed over ``data`` and rounded to
+        ``x``'s dtype once, where one rank's product rounds once."""
+        from .collectives import psum
+
+        return psum(x.float() @ w.float(), self.mesh, "data", path).to(x.dtype)
+
+    def whole_d(self, y: torch.Tensor, path: str) -> torch.Tensor:
+        """``[..., d / data ranks]`` → ``[..., d]``: this rank's block of
+        ``d_model`` gathered over ``data``."""
+        from .collectives import all_gather
+
+        return all_gather(y, self.mesh, "data", y.dim() - 1, path)
 
     def gather_params(self, tree: Dict[str, Any], defs: Dict[str, Any], path: str):
         """``tree`` (this rank's blocks, declared by ``defs``) with every
@@ -285,18 +328,39 @@ def rank_layout(b: int, s: int, d: int) -> Optional[RankLayout]:
 
 def cache_layout(lay: RankLayout, decl, rules: Dict[str, Any]) -> RankLayout:
     """``lay`` with the block of the cache leaf that ``decl`` declares
-    (``[L, B, s_max, nkv, hd]``, axes ``("layers", "batch", "kv_seq",
-    "kv_heads", "head_dim")``) under ``rules``, by ``spec_for``: ``kv_seq``
-    over ``model`` where the decode rules put it there and it divides,
-    else whole.  Raises where the cache's batch would lie otherwise than
-    the residual stream's, its positions over another axis, or its kv
-    heads split."""
+    under ``rules``, by ``spec_for``: an attention cache ``[L, B, s_max,
+    nkv, hd]`` (axes ``("layers", "batch", "kv_seq", "kv_heads",
+    "head_dim")``), ``kv_seq`` over ``model`` where the decode rules put it
+    there and it divides, else whole; a mamba state (``conv`` or ``h``),
+    ``d_inner`` over ``model`` where it divides, as the parameters split
+    it.  Raises where the cache's batch would lie otherwise than the
+    residual stream's, its positions or channels over another axis, its kv
+    heads split, or its channels otherwise than the parameters' (the layer
+    runs on the parameters' block)."""
     spec = spec_for(decl.shape, decl.axes, lay.mesh, rules) + (None,) * len(decl.shape)
     batch = spec[1] if isinstance(spec[1], tuple) else (spec[1],) if spec[1] else ()
-    if batch != lay.batch or spec[2] not in (None, "model") or any(spec[3:]):
+    at = decl.axes.index("kv_seq" if "kv_seq" in decl.axes else "d_inner")
+    rest = [e for i, e in enumerate(spec[:len(decl.shape)]) if i not in (1, at)]
+    params = spec_for((decl.shape[at],), ("d_inner",), lay.mesh, lay.param_rules)
+    if (batch != lay.batch or spec[at] not in (None, "model") or any(rest)
+            or (decl.axes[at] == "d_inner" and (spec[at],) != (params + (None,))[:1])):
         raise NotImplementedError(f"caches by {spec[:len(decl.shape)]} beside the batch over "
-                                  f"{lay.batch}")
-    return replace(lay, s_max=decl.shape[2], kv_sharded=spec[2] == "model")
+                                  f"{lay.batch} and parameters by {lay.param_rules}")
+    if decl.axes[at] == "d_inner":
+        return replace(lay, d_inner=decl.shape[at], di_sharded=spec[at] == "model")
+    return replace(lay, s_max=decl.shape[at], kv_sharded=spec[at] == "model")
+
+
+def keeps_d_blocks(lay: RankLayout, d_model: int) -> bool:
+    """Whether a decode layout should keep the parameters' ``d_model``
+    blocks in place: the batch does not split over ``data`` (every rank of
+    it holds the same rows), while the parameter rules split ``d_model``
+    over it.  Gathering each layer's weights there would move them all to
+    compute what each rank computes alike; the partial products over
+    ``d_model`` summed over ``data`` move a row's activations instead, as
+    GSPMD partitions the reference's decode cell."""
+    return ("data" not in lay.batch and spec_for((d_model,), ("d_model",), lay.mesh,
+                                                 lay.param_rules) == ("data",))
 
 
 def replicated_axes(decl, mesh, param_rules: Dict[str, Any]) -> Tuple[str, ...]:

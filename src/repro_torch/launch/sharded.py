@@ -1,7 +1,7 @@
-"""Sharded runs of a dense model over a rank mesh: what each rank runs for
-a train step, ``Model.prefill``, decode ticks and ``Model.loss`` under the
-baseline, ``opt`` and small-DP policies, and the collectives they issue,
-by formula.
+"""Sharded runs of a dense or SSM model over a rank mesh: what each rank
+runs for a train step, ``Model.prefill``, decode ticks and ``Model.loss``
+under the baseline, ``opt`` and small-DP policies, and the collectives
+they issue, by formula.
 
 :func:`run` is a target of ``distributed/ranks.py::run_ranks``: every rank
 calls it with the same payload, and for each case of ``payload["cases"]``
@@ -72,20 +72,24 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     residual stream's block; per layer, one gather of the layer's
     ``d_model`` blocks over ``data``, and for attention and the MLP each
     the sequence gathered over ``model`` and the row-parallel sum
-    scattered back; then the prefill's last position or the loss's whole
-    stream gathered over ``model`` and the head's gather over ``data``;
-    the prefill's caches moved to the decode layout (``prefill/cache``:
-    an all-to-all over ``model``, an all-gather where the positions do not
-    split, none where the q heads do not); the loss's vocab-parallel
-    combination over ``model`` and its sums over the batch's axes.  A
-    decode tick (:func:`_decode_sections`, ``rules`` the decode rules) has
-    no sequence to gather, and the launcher's greedy pick ends it.
+    scattered back, for a mamba layer the sequence gathered, the float32
+    sum of ``w_dt``, ``w_b`` and ``w_c``'s partial products
+    (``mamba/dtbc``) and the row-parallel float32 sum scattered back; then
+    the prefill's last position or the loss's whole stream gathered over
+    ``model`` and the head's gather over ``data`` (of the embedding, for
+    a tied head); the prefill's caches moved to the decode layout
+    (``prefill/cache``: an all-to-all over ``model``, an all-gather where
+    the positions do not split, none where the q heads do not, nor for an
+    SSM's states); the loss's vocab-parallel combination over ``model``
+    and its sums over the batch's axes.  A decode tick
+    (:func:`_decode_sections`, ``rules`` the decode rules) has no sequence
+    to gather, and the launcher's greedy pick ends it.
 
     A train step runs, for each microbatch, the loss's forward and then
     its backward: each op's transpose (``distributed/collectives.py``) in
     reverse order, where under ``cfg.remat`` each layer issues its forward
-    again up to its MLP's input (the checkpoint's recomputation: the
-    layer's gather over ``data`` again) after its MLP output's transpose,
+    again up to its last row-parallel sum (the checkpoint's recomputation:
+    the layer's gather over ``data`` again) after that sum's transpose,
     and its gradient's reduce-scatter comes last.  Then the sums of the leaves held
     alike along some axes (``actctx.sum_replicated``: ``model``, ``pod``,
     every axis under small-DP; float32 when ``accum > 1``), and the grad
@@ -104,10 +108,11 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
         return embed + layer * cfg.n_layers + head
     embed, layer, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s,
                                         param_bytes, act_bytes, "loss")
+    last = ("mlp/out", "mamba/out")      # the layer's output, after its last saved tensor
     again = [(k, n, g, f"{path}/bwd") for k, n, g, path in layer
-             if path != "mlp/out" and cfg.remat]
-    rest = [op for op in layer if op[3] != "mlp/out"]
-    layer_bwd = ([_transpose(op) for op in layer if op[3] == "mlp/out"] + again
+             if path not in last and cfg.remat]
+    rest = [op for op in layer if op[3] not in last]
+    layer_bwd = ([_transpose(op) for op in layer if op[3] in last] + again
                  + [_transpose(op) for op in reversed(rest)])
     backward = ([_transpose(op) for op in reversed(head)] + layer_bwd * cfg.n_layers
                 + [_transpose(op) for op in reversed(embed)])
@@ -169,12 +174,18 @@ def _split(param_rules, mesh, axis: str, n: int) -> bool:
     return param_rules.get(axis) == "model" and n_model > 1 and n % n_model == 0
 
 
+def _head_defs(cfg: ModelConfig, defs) -> dict:
+    """The leaves the head gathers: ``ln_f`` and ``lm_head``, or the
+    embedding for a tied head."""
+    return {k: defs[k] for k in ("ln_f", "embed" if cfg.tie_embeddings else "lm_head")}
+
+
 def _cache_op(cfg: ModelConfig, mesh, param_rules, b_loc: int, s_max: int,
               act_bytes: int) -> List[Op]:
     """The prefill's caches moved to the decode layout
     (``Model._cache_blocks``)."""
     n_model = mesh.shape.get("model", 1)
-    if not _split(param_rules, mesh, "heads", cfg.n_heads):
+    if cfg.family == "ssm" or not _split(param_rules, mesh, "heads", cfg.n_heads):
         return []
     heads = cfg.n_kv_heads
     if _split(param_rules, mesh, "kv_heads", heads):
@@ -187,39 +198,76 @@ def _cache_op(cfg: ModelConfig, mesh, param_rules, b_loc: int, s_max: int,
     return [("all-gather", nbytes * n_model, n_model, "prefill/cache")]
 
 
+def _dtbc(cfg: ModelConfig, mesh, param_rules, rows: int) -> List[Op]:
+    """The float32 sum over ``model`` of a mamba layer's ``[rows, dt_rank
+    + 2N]`` partial products (``ssm._ssm_inputs``), where ``d_inner``
+    splits."""
+    if not _split(param_rules, mesh, "d_inner", cfg.d_inner):
+        return []
+    width = cfg.resolved_dt_rank + 2 * cfg.ssm_state
+    return [("all-reduce", rows * width * 4, mesh.shape["model"], "mamba/dtbc")]
+
+
 def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s_max: int,
                      param_bytes: int, act_bytes: int):
     """(the embedding's ops, one layer's, the head's and the greedy
-    pick's) of a decode tick (``attention._decode_attention_sharded``)."""
+    pick's) of a decode tick (``attention._decode_attention_sharded``,
+    ``ssm.mamba_decode``); an SSM whose batch does not split over ``data``
+    gathers no weights (``actctx.keeps_d_blocks``): the embedding's and
+    each layer's output block of ``d_model`` gathered over ``data``, the
+    input projections' and the head's float32 partial sums over it."""
     batch, _ = actctx.residual_axes(b, 1, cfg.d_model, mesh, rules)
     n_model = mesh.shape.get("model", 1)
     b_loc = b // math.prod(mesh.shape[a] for a in batch)
-    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    k = Model(cfg).cache_defs(b, s_max)["k"]
-    kv_split = (spec_for(k.shape, k.axes, mesh, rules) + (None,) * 3)[2] == "model"
-    heads = _split(param_rules, mesh, "heads", nq)
+    mixer, ffn = _slot_kind(cfg, 0)
+    # an SSM whose batch does not split over data keeps its d_model blocks
+    keep = mixer == "mamba" and actctx.keeps_d_blocks(
+        actctx.RankLayout(mesh, batch, False, b, 1, param_rules), cfg.d_model)
+    d = cfg.d_model // (mesh.shape.get("data", 1) if keep else 1)
 
-    def to_stream(axis: str, n: int, path: str) -> List[Op]:
+    def to_stream(axis: str, n: int, path: str, nbytes: int = act_bytes) -> List[Op]:
         if not _split(param_rules, mesh, axis, n):
             return []
-        return [("all-reduce", b_loc * cfg.d_model * act_bytes, n_model, path)]
+        return [("all-reduce", b_loc * d * nbytes, n_model, path)]
 
-    embed = (_gather_params({"embed": defs["embed"]}, "embed", mesh, param_rules, param_bytes)
-             + to_stream("vocab", cfg.vocab_size, "embed"))
-    layer = _gather_params(_one_layer_defs(cfg, *_slot_kind(cfg, 0)), "layer", mesh,
-                           param_rules, param_bytes)
-    if heads:
-        width = nq + (2 * nkv if _split(param_rules, mesh, "kv_heads", nkv) else 0)
-        layer.append(("all-gather", b_loc * width * hd * act_bytes, n_model, "attn/qkv"))
-    if kv_split:
-        layer += [("all-reduce", b_loc * nq * 4, n_model, "attn/max"),
-                  ("all-reduce", b_loc * nq * 4, n_model, "attn/sum"),
-                  ("reduce-scatter", b_loc * nq // n_model * hd * 4, n_model, "attn/pv") if heads
-                  else ("all-reduce", b_loc * nq * hd * 4, n_model, "attn/pv")]
-    layer += to_stream("heads", nq, "attn/out") + to_stream("d_ff", cfg.d_ff, "mlp/out")
-    head = _gather_params({"ln_f": defs["ln_f"], "lm_head": defs["lm_head"]}, "head", mesh,
-                          param_rules, param_bytes)
-    if _split(param_rules, mesh, "vocab", cfg.vocab_size):
+    def whole_d(path: str) -> List[Op]:
+        return [("all-gather", b_loc * cfg.d_model * act_bytes, mesh.shape["data"], path)]
+
+    def gather_params(tree: dict, path: str) -> List[Op]:
+        return [] if keep else _gather_params(tree, path, mesh, param_rules, param_bytes)
+
+    embed = (gather_params({"embed": defs["embed"]}, "embed")
+             + to_stream("vocab", cfg.vocab_size, "embed")
+             + (whole_d("embed/data") if keep else []))
+    layer = gather_params(_one_layer_defs(cfg, mixer, ffn), "layer")
+    if keep:
+        din = cfg.d_inner // (n_model if _split(param_rules, mesh, "d_inner", cfg.d_inner) else 1)
+        layer.append(("all-reduce", b_loc * 2 * din * 4, mesh.shape["data"], "mamba/in"))
+    if mixer == "mamba":
+        layer += (_dtbc(cfg, mesh, param_rules, b_loc)
+                  + to_stream("d_inner", cfg.d_inner, "mamba/out", 4)
+                  + (whole_d("mamba/data") if keep else []))
+    else:
+        nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        k = Model(cfg).cache_defs(b, s_max)["k"]
+        kv_split = (spec_for(k.shape, k.axes, mesh, rules) + (None,) * 3)[2] == "model"
+        heads = _split(param_rules, mesh, "heads", nq)
+        if heads:
+            width = nq + (2 * nkv if _split(param_rules, mesh, "kv_heads", nkv) else 0)
+            layer.append(("all-gather", b_loc * width * hd * act_bytes, n_model, "attn/qkv"))
+        if kv_split:
+            layer += [("all-reduce", b_loc * nq * 4, n_model, "attn/max"),
+                      ("all-reduce", b_loc * nq * 4, n_model, "attn/sum"),
+                      ("reduce-scatter", b_loc * nq // n_model * hd * 4, n_model, "attn/pv")
+                      if heads else ("all-reduce", b_loc * nq * hd * 4, n_model, "attn/pv")]
+        layer += to_stream("heads", nq, "attn/out")
+    if ffn == "mlp":
+        layer += to_stream("d_ff", cfg.d_ff, "mlp/out")
+    v_loc = cfg.vocab_size // (n_model if _split(param_rules, mesh, "vocab", cfg.vocab_size)
+                               else 1)
+    head = ([("all-reduce", b_loc * v_loc * 4, mesh.shape["data"], "head")] if keep
+            else gather_params(_head_defs(cfg, defs), "head"))
+    if v_loc != cfg.vocab_size:
         head.append(("all-gather", n_model * b_loc * 2 * 8, n_model, "decode/greedy"))
     return embed, layer, head
 
@@ -235,6 +283,7 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
     n_batch = math.prod(mesh.shape[a] for a in batch)
     b_loc, s_loc, d = b // n_batch, s // n_model if seq else s, cfg.d_model
     stream = b_loc * s * d * act_bytes
+    mixer, ffn = _slot_kind(cfg, 0)
 
     def gather_params(tree: dict, path: str) -> List[Op]:
         return _gather_params(tree, path, mesh, param_rules, param_bytes)
@@ -242,22 +291,27 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
     def split(axis: str, n: int) -> bool:
         return _split(param_rules, mesh, axis, n)
 
-    def to_stream(axis: str, n: int, path: str) -> List[Op]:
+    def to_stream(axis: str, n: int, path: str, nbytes: int = act_bytes) -> List[Op]:
         if not split(axis, n):
             return []
         if seq:
-            return [("reduce-scatter", b_loc * s_loc * d * act_bytes, n_model, path)]
-        return [("all-reduce", stream, n_model, path)]
+            return [("reduce-scatter", b_loc * s_loc * d * nbytes, n_model, path)]
+        return [("all-reduce", b_loc * s * d * nbytes, n_model, path)]
 
     def gather_seq(nbytes: int, path: str) -> List[Op]:
         return [("all-gather", nbytes, n_model, path)] if seq else []
 
     embed = (gather_params({"embed": defs["embed"]}, "embed")
              + to_stream("vocab", cfg.vocab_size, "embed"))
-    layer = gather_params(_one_layer_defs(cfg, *_slot_kind(cfg, 0)), "layer")
-    for block, axis, n in (("attn", "heads", cfg.n_heads), ("mlp", "d_ff", cfg.d_ff)):
-        layer += gather_seq(stream, f"{block}/in") + to_stream(axis, n, f"{block}/out")
-    head_params = gather_params({"ln_f": defs["ln_f"], "lm_head": defs["lm_head"]}, "head")
+    layer = gather_params(_one_layer_defs(cfg, mixer, ffn), "layer")
+    if mixer == "mamba":
+        layer += (gather_seq(stream, "mamba/in") + _dtbc(cfg, mesh, param_rules, b_loc * s)
+                  + to_stream("d_inner", cfg.d_inner, "mamba/out", 4))
+    else:
+        layer += gather_seq(stream, "attn/in") + to_stream("heads", cfg.n_heads, "attn/out")
+    if ffn == "mlp":
+        layer += gather_seq(stream, "mlp/in") + to_stream("d_ff", cfg.d_ff, "mlp/out")
+    head_params = gather_params(_head_defs(cfg, defs), "head")
     if step == "prefill":
         last = gather_seq(b_loc * n_model * d * act_bytes, "prefill/last")
         cache = _cache_op(cfg, mesh, param_rules, b_loc, s_max, act_bytes)
@@ -324,7 +378,6 @@ def _train(model: Model, params, entry: dict, device, carry: dict):
     with ``build_cell``'s schedule, ``accum`` microbatches, parameters and
     state donated as ``build_cell`` donates them) of the whole batch
     ``tokens`` from fresh optimizer state → (result, new params)."""
-    from ..kernels import flash_attention
     from ..optim import AdamW, warmup_cosine
     from .steps import make_train_step
 
@@ -333,7 +386,7 @@ def _train(model: Model, params, entry: dict, device, carry: dict):
     step = make_train_step(model, opt, accum=entry.get("accum", 1), donate=True)
     batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
     out = dict(loss=[], grad_norm=[], ms=[])
-    flash_attention.stats["launches"] = 0
+    _launches(reset=True)
     for _ in range(entry.get("steps", 1)):
         with counting_collectives() as report:
             (params, state, metrics), ms = _timed(lambda: step(params, state, batch), device)
@@ -341,7 +394,7 @@ def _train(model: Model, params, entry: dict, device, carry: dict):
         out["loss"].append(float(metrics["loss"]))
         out["grad_norm"].append(float(metrics["grad_norm"]))
         out["ms"].append(ms)
-    out["k2_launches"] = flash_attention.stats["launches"]
+    out.update(_launches())
     trees = dict(params=params, m=state.m, v=state.v)
     out.update({k: _host(trees[k]) for k in entry.get("host", trees)})
     return out, params
@@ -356,20 +409,18 @@ def _cols(lay, v_loc: int, cfg: ModelConfig):
 def _prefill(model: Model, params, entry: dict, device, carry: dict):
     """The prefill; its caches (this rank's blocks in the decode layout)
     stay in ``carry`` for the decode entries."""
-    from ..kernels import flash_attention
-
     tokens = torch.as_tensor(entry["tokens"]).long().to(device)
     s_max = entry.get("s_max", tokens.shape[1])
     call = lambda: model.prefill(params, {"tokens": tokens}, s_max)  # noqa: E731
-    flash_attention.stats["launches"] = 0
+    _launches(reset=True)
     before = dict(staging)
     with counting_collectives() as report:
         (logits, caches), ms = _timed(call, device)
-    k2 = flash_attention.stats["launches"]
+    counts = _launches()
     lay = actctx.rank_layout(*tokens.shape, model.cfg.d_model)
     out = dict(logits=logits.cpu(), rows=(lay.b0, lay.b0 + lay.b_loc),
                cols=_cols(lay, logits.shape[-1], model.cfg), caches=_host(caches),
-               ops=_ops(report), k2_launches=k2, staging_s=_staging_since(before))
+               ops=_ops(report), staging_s=_staging_since(before), **counts)
     carry.update(caches=caches, pos=tokens.shape[1], s_max=s_max)
     del logits, caches
     ms = [ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]
@@ -378,34 +429,40 @@ def _prefill(model: Model, params, entry: dict, device, carry: dict):
 
 def cache_slab(cfg: ModelConfig, b: int, s_max: int, seed: int, layer: int, which: str,
                device) -> torch.Tensor:
-    """Layer ``layer``'s whole ``which`` (``"k"`` or ``"v"``) cache ``[b,
-    s_max, nkv, hd]``, float32 standard normal, drawn on ``device`` from
-    ``(seed, layer, which)`` alone: every rank, and the one-rank model,
-    draw the same slab and keep what they hold of it."""
+    """Layer ``layer``'s whole ``which`` cache of a uniform stack (``"k"``
+    or ``"v"``, ``[b, s_max, nkv, hd]``; an SSM's ``"conv"``, ``[b, k - 1,
+    d_inner]``, or ``"h"``, ``[b, d_inner, N]``), float32 standard normal,
+    drawn on ``device`` from ``(seed, layer, which)`` alone: every rank,
+    and the one-rank model, draw the same slab and keep what they hold of
+    it."""
     gen = torch.Generator(device=device).manual_seed(
-        (seed * 100_003 + layer) * 2 + ("k", "v").index(which))
-    return torch.randn((b, s_max, cfg.n_kv_heads, cfg.resolved_head_dim), generator=gen,
-                       device=device)
+        (seed * 100_003 + layer) * 2 + {"k": 0, "v": 1, "conv": 0, "h": 1}[which])
+    shape = Model(cfg).cache_defs(b, s_max)[which].shape[1:]
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def cache_dtype(cfg: ModelConfig, decl) -> torch.dtype:
+    """A cache leaf's dtype (``Model.init_caches``): float32 for the SSM
+    state ``h``, else the compute dtype."""
+    return torch.float32 if "ssm_state" in decl.axes else dtype_of(cfg.compute_dtype)
 
 
 def seeded_caches(model: Model, b: int, s_max: int, seed: int, device, mesh=None,
                   rules=None):
-    """Caches of ``b`` rows and ``s_max`` positions from :func:`cache_slab`
-    in the compute dtype: whole, or this rank's blocks on ``mesh`` under
-    ``rules`` (``spec_for`` of the cache leaves), one layer's slab on the
-    device at a time."""
+    """Caches of ``b`` rows (and ``s_max`` positions) from :func:`cache_slab`
+    in their dtypes (:func:`cache_dtype`): whole, or this rank's blocks on
+    ``mesh`` under ``rules`` (``spec_for`` of the cache leaves), one
+    layer's slab on the device at a time."""
     from ..distributed.sharding import block_index
 
-    cfg = model.cfg
-    k = model.cache_defs(b, s_max)["k"]
-    index = (slice(None),) * 5
-    if mesh is not None:
-        index = block_index(k.shape, spec_for(k.shape, k.axes, mesh, rules), mesh.shape,
-                            mesh.coords)
-    shape = [len(range(*sl.indices(n))) for sl, n in zip(index, k.shape)]
-    dtype = dtype_of(cfg.compute_dtype)
-    out = {}
-    for which in ("k", "v"):
+    cfg, out = model.cfg, {}
+    for which, decl in model.cache_defs(b, s_max).items():
+        index = (slice(None),) * len(decl.shape)
+        if mesh is not None:
+            index = block_index(decl.shape, spec_for(decl.shape, decl.axes, mesh, rules),
+                                mesh.shape, mesh.coords)
+        shape = [len(range(*sl.indices(n))) for sl, n in zip(index, decl.shape)]
+        dtype = cache_dtype(cfg, decl)
         out[which] = torch.empty(shape, dtype=dtype, device=device)
         for layer in range(cfg.n_layers):
             slab = cache_slab(cfg, b, s_max, seed, layer, which, device)
@@ -435,13 +492,14 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
     time (teacher-forced), from position ``pos``, into caches that are the
     prefill's (none of the keys below; ``pos`` the prompt's length, then
     where the last such entry stopped), the whole ``caches`` given (numpy
-    ``{"k", "v"}`` ``[L, B, s_max, nkv, hd]``; each rank keeps its blocks)
-    or drawn from ``seed`` at ``s_max`` (:func:`seeded_caches`); ``pos``
-    given with either.  ``host_caches``: also return host copies of this
-    rank's blocks after the last tick.  → per entry: each tick's logits
-    block (host), the greedy tokens of this rank's rows (:func:`_greedy`),
-    ``ops``, ``ms`` and ``pos``; ``rows``, ``cols``, ``kv`` (this rank's
-    positions), ``k3_launches`` (the decode kernel's, over the entry's
+    ``{"k", "v"}`` ``[L, B, s_max, nkv, hd]``, or an SSM's ``{"conv",
+    "h"}``; each rank keeps its blocks) or drawn from ``seed`` at ``s_max``
+    (:func:`seeded_caches`); ``pos`` given with either.  ``host_caches``:
+    also return host copies of this rank's blocks after the last tick.  →
+    per entry: each tick's logits block (host), the greedy tokens of this
+    rank's rows (:func:`_greedy`), ``ops``, ``ms`` and ``pos``; ``rows``,
+    ``cols``, ``kv`` (this rank's positions; an SSM's block of
+    ``d_inner``), ``k3_launches`` (the decode kernel's, over the entry's
     ticks) and, on the card, ``max_memory_allocated`` since the entry
     began."""
     from ..kernels import decode_attention
@@ -457,20 +515,22 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
             if "caches" in entry:
                 from ..convert import shard_params
 
-                s_max, pos = entry["caches"]["k"].shape[2], entry["pos"]
-                axes = param_axes(model.cache_defs(b, s_max))
-                blocks = shard_params(entry["caches"], axes, mesh, mesh.coords, rules)
-                caches = {k: torch.as_tensor(v).to(device, dtype_of(cfg.compute_dtype))
+                given = entry["caches"]
+                s_max, pos = given["k"].shape[2] if "k" in given else 0, entry["pos"]
+                defs = model.cache_defs(b, s_max)
+                blocks = shard_params(given, param_axes(defs), mesh, mesh.coords, rules)
+                caches = {k: torch.as_tensor(v).to(device, cache_dtype(cfg, defs[k]))
                           .contiguous() for k, v in blocks.items()}
             elif "seed" in entry:
                 s_max, pos = entry["s_max"], entry["pos"]
                 caches = seeded_caches(model, b, s_max, entry["seed"], device, mesh, rules)
             else:
                 caches, s_max, pos = carry["caches"], carry["s_max"], carry["pos"]
-            lay = actctx.cache_layout(actctx.rank_layout(b, 1, cfg.d_model),
-                                      model.cache_defs(b, s_max)["k"], rules)
+            lay = model.cache_layout(actctx.rank_layout(b, 1, cfg.d_model), s_max, rules)
+            kv = ((lay.di0, lay.di0 + lay.di_loc) if cfg.family == "ssm"
+                  else (lay.kv0, lay.kv0 + lay.kv_loc))
             res = dict(logits=[], tokens=[], ops=[], ms=[], pos=[],
-                       rows=(lay.b0, lay.b0 + lay.b_loc), kv=(lay.kv0, lay.kv0 + lay.kv_loc))
+                       rows=(lay.b0, lay.b0 + lay.b_loc), kv=kv)
             decode_attention.stats["launches"] = 0
             before = dict(staging)
             for t in range(tokens.shape[1]):
@@ -500,21 +560,31 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
     return out, params
 
 
-def _loss(model: Model, params, entry: dict, device, carry: dict):
-    from ..kernels import flash_attention
+def _launches(reset: bool = False) -> dict:
+    """K2's and K4's launches (``k2_launches``, ``k4_launches``) since the
+    last reset; ``reset`` sets both counts to 0 first."""
+    from ..kernels import flash_attention, mamba_scan
 
+    counts = {"k2_launches": flash_attention.stats, "k4_launches": mamba_scan.stats}
+    if reset:
+        for stats in counts.values():
+            stats["launches"] = 0
+    return {k: stats["launches"] for k, stats in counts.items()}
+
+
+def _loss(model: Model, params, entry: dict, device, carry: dict):
     model = Model(model.cfg.with_(**entry.get("cfg", {})))
     batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
     if "loss_mask" in entry:
         batch["loss_mask"] = torch.as_tensor(entry["loss_mask"]).to(device)
     call = lambda: model.loss(params, batch)  # noqa: E731
-    flash_attention.stats["launches"] = 0
+    _launches(reset=True)
     before = dict(staging)
     with counting_collectives() as report:
         (total, metrics), ms = _timed(call, device)
-    k2 = flash_attention.stats["launches"]
+    counts = _launches()
     return dict(loss=float(total), ce=float(metrics["ce"]), aux=float(metrics["aux"]),
-                ops=_ops(report), k2_launches=k2, staging_s=_staging_since(before),
+                ops=_ops(report), staging_s=_staging_since(before), **counts,
                 ms=[ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]), params
 
 
@@ -535,17 +605,19 @@ def _decode_rules(case: dict, mesh):
 def run(payload: dict) -> List[dict]:
     """The steps each case names → per case: ``coords``, ``kv_heads`` (the
     global kv heads of the prefill's k and v projection on this rank,
-    ``attention.rank_kv_heads``),
+    ``attention.rank_kv_heads``; None without attention),
     ``init_s``, ``rules`` and ``param_rules`` (as :func:`_rules` chose
     them), and per step: the train steps' ``loss``, ``grad_norm`` and
-    ``ops`` of the first, ``k2_launches`` over all of them, and host copies of this rank's blocks of the new
+    ``ops`` of the first, ``k2_launches`` and ``k4_launches`` over all of
+    them, and host copies of this rank's blocks of the new
     ``params``, ``m`` and ``v`` (those the entry's ``host`` names; default
     all three); the prefill's ``logits`` (this rank's block ``[B / batch
     ranks, V / model ranks]``, at ``rows`` and ``cols`` of the whole),
     ``caches`` (host; this rank's blocks in the decode layout), ``ops``,
-    ``k2_launches``; the decode entries' results (:func:`_decode`); the
-    loss's ``loss``, ``ce``, ``aux``, ``ops``, ``k2_launches`` (an entry's
-    ``cfg`` overrides, e.g. ``attn_impl``); the prefill's, the decode
+    ``k2_launches``, ``k4_launches``; the decode entries' results
+    (:func:`_decode`); the loss's ``loss``, ``ce``, ``aux``, ``ops``,
+    ``k2_launches``, ``k4_launches`` (an entry's ``cfg`` overrides, e.g.
+    ``attn_impl`` or ``ssm_impl``); the prefill's, the decode
     entries' and the loss's ``staging_s`` (``collectives.staging`` over
     the counted call, or the entry's ticks); each step's ``ms``, the
     CUDA-synchronised wall clock of each train step, or of the counted
@@ -565,10 +637,11 @@ def run(payload: dict) -> List[dict]:
         t0 = time.perf_counter()
         params = _params(case, mesh, model, device, param_rules)
         _sync(device)
-        attn = params["stack"]["attn"]
+        attn = params["stack"].get("attn")
         res = dict(coords=mesh.coords, init_s=time.perf_counter() - t0, rules=rules,
                    param_rules=param_rules,
-                   kv_heads=rank_kv_heads(cfg, attn["w_q"], attn["w_k"], mesh.coords["model"]))
+                   kv_heads=None if attn is None else rank_kv_heads(
+                       cfg, attn["w_q"], attn["w_k"], mesh.coords["model"]))
         if device.type == "cuda":
             res["params_allocated"] = torch.cuda.memory_allocated(device)
         carry = dict(mesh=mesh, param_rules=PARAM_RULES if param_rules is None else param_rules)

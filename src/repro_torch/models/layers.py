@@ -22,11 +22,16 @@ from ..configs.base import ModelConfig
 from .params import P
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, lay=None) -> torch.Tensor:
+    """RMSNorm over the last dimension; with ``lay`` (a decode layout that
+    keeps its ``d_model`` blocks in place, ``RankLayout.d_block``), this
+    rank's block of the whole ``x``'s norm, ``weight`` the block."""
     dtype = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
+    if lay is not None:
+        out = lay.d_block(out)
     return (out * weight.float()).to(dtype)
 
 

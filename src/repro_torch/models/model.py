@@ -15,7 +15,7 @@ Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub),
 keeps a length-1 sequence axis, ``[B, 1, V]``).
 
 Under an ``activation_sharding`` context whose mesh is a rank mesh of more
-than one rank, a dense model's ``loss`` and ``prefill`` run sharded
+than one rank, a dense or SSM model's ``loss`` and ``prefill`` run sharded
 (``distributed/actctx.py::rank_layout``), as the reference's partitioned
 cell under the baseline, ``opt`` and small-DP policies: ``params`` are
 this rank's blocks by the context's parameter rules
@@ -24,19 +24,29 @@ this rank's blocks by the context's parameter rules
 embedding is a vocab-parallel lookup (rows outside this rank's block of
 the vocabulary give 0), reduce-scattered into the residual stream's block
 (the reference's ``constrain`` at ``_assemble_input``); the layers run on
-this rank's heads and ``d_ff`` columns; the head is vocab-parallel.
+this rank's heads and ``d_ff`` columns, or its ``d_inner`` channels; the
+head is vocab-parallel.  A tied head is the embedding's vocab-parallel
+block, gathered over ``data`` for the head as for the lookup: its logits
+are ``x @ block.T``, this rank's block of the vocabulary, and under
+autograd the leaf's gradient sums both uses.
 ``prefill`` returns this rank's block of the last position's logits,
 ``[B / batch ranks, V / model ranks]`` (the reference's output spec
 ``(batch, vocab)``), and this rank's blocks of the caches in the layout
 the reference's prefill cell writes them (``out_shardings`` under
 ``ACT_RULES_DECODE``, ``sharding.decode_rules``): its rows, its block of
 positions over ``model`` (every position where ``s_max`` does not divide
-the axis), every kv head (:meth:`Model._cache_blocks`).  Under the decode
-rules ``decode`` runs the reference's decode cell: ``token`` the whole
-``[B, 1]``, ``caches`` this rank's blocks in that layout (``s_max`` their
-whole length), the softmax across the ranks' blocks of positions
-(``attention.decode_attention``); it returns this rank's ``[B / batch
-ranks, V / model ranks]`` logits and writes its blocks in place.
+the axis), every kv head; an SSM's mamba states its rows and block of
+``d_inner`` (:meth:`Model._cache_blocks`).  Under the decode rules
+``decode`` runs the reference's decode cell: ``token`` the whole ``[B,
+1]``, ``caches`` this rank's blocks in that layout (``s_max`` the
+attention caches' whole length; an SSM's caches do not grow), the softmax
+across the ranks' blocks of positions (``attention.decode_attention``) or
+the mamba update on the rank's channels (``ssm.mamba_decode``); it
+returns this rank's ``[B / batch ranks, V / model ranks]`` logits and
+writes its blocks in place.  An SSM's tick whose batch does not split
+over ``data`` keeps every ``d_model`` block in place
+(``actctx.keeps_d_blocks``): the lookup's block gathered over ``data``,
+the head's float32 partial products over ``d_model`` summed over it.
 ``loss`` takes a vocab-parallel cross-entropy — each rank's log-sum-exp
 and gold logit over its block of the vocabulary, gathered over ``model``
 and combined — and returns the mean over every position of the global
@@ -44,13 +54,13 @@ batch, the same on every rank.  Under autograd the loss is the root of
 the backward pass through the collectives' transposes
 (``distributed/collectives.py``): each leaf's gradient comes back as this
 rank's share, which ``launch/steps.py::make_train_step`` sums over the
-axes the leaf is held alike along.  A tied head, and every family but the
-dense one, raise under autograd on a rank mesh (their sharded train step
-is not ported).
+axes the leaf is held alike along.  Every family but the dense and SSM
+ones raises under autograd on a rank mesh (its sharded train step is not
+ported), and runs whole on every rank without it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -93,39 +103,52 @@ class Model:
         dtype = dtype_of(self.cfg.compute_dtype)
         if lay is None:
             return params["embed"][tokens].to(dtype)
-        emb = lay.gather_params({"embed": params["embed"]}, self.defs(), "embed")["embed"]
+        emb = params["embed"]
+        if not lay.stationary:
+            emb = lay.gather_params({"embed": emb}, self.defs(), "embed")["embed"]
         n_v = emb.shape[0]
         if n_v == self.cfg.vocab_size:
-            return lay.scatter_seq(emb[tokens].to(dtype), False, "embed")
-        idx = tokens - lay.mi * n_v
-        inside = (idx >= 0) & (idx < n_v)
-        x = torch.where(inside[..., None], emb[idx.clamp(0, n_v - 1)], 0).to(dtype)
-        return lay.scatter_seq(x, True, "embed")
+            x = lay.scatter_seq(emb[tokens].to(dtype), False, "embed")
+        else:
+            idx = tokens - lay.mi * n_v
+            inside = (idx >= 0) & (idx < n_v)
+            x = torch.where(inside[..., None], emb[idx.clamp(0, n_v - 1)], 0).to(dtype)
+            x = lay.scatter_seq(x, True, "embed")
+        return lay.whole_d(x, "embed/data") if lay.stationary else x
 
     def _head(self, params: Tree, x: torch.Tensor, lay=None) -> torch.Tensor:
+        w = "embed" if self.cfg.tie_embeddings else "lm_head"
+        if lay is not None and lay.stationary:     # this rank's d_model block
+            x = rms_norm(x, params["ln_f"], self.cfg.norm_eps, lay)
+            w = params[w].T if self.cfg.tie_embeddings else params[w]
+            return lay.contract(x, w, "head").float()
         if lay is not None:
-            head = {k: params[k] for k in ("ln_f", "lm_head")}
-            params = lay.gather_params(head, self.defs(), "head")
+            params = lay.gather_params({k: params[k] for k in ("ln_f", w)}, self.defs(), "head")
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            logits = x @ params["embed"].T
-        else:
-            logits = x @ params["lm_head"]
+        logits = x @ (params["embed"].T if self.cfg.tie_embeddings else params["lm_head"])
         return logits.float()
 
     def _layout(self, batch: Dict[str, torch.Tensor]):
         """The rank layout of this batch under the active context (a dense
-        model on a rank mesh), or None."""
+        or SSM model on a rank mesh), or None."""
         from ..distributed.actctx import rank_layout, rank_params
 
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "ssm"):
             if torch.is_grad_enabled() and rank_params() is not None:
                 raise NotImplementedError(f"the {self.cfg.family} family's sharded train step")
             return None
-        lay = rank_layout(*batch["tokens"].shape, self.cfg.d_model)
-        if lay is not None and self.cfg.tie_embeddings:
-            raise NotImplementedError("the sharded model with a tied head")
-        return lay
+        return rank_layout(*batch["tokens"].shape, self.cfg.d_model)
+
+    def cache_layout(self, lay, s_max: int, rules):
+        """``lay`` with this rank's block of the decode caches under
+        ``rules`` (``actctx.cache_layout`` of an attention cache of
+        ``s_max`` positions, or of an SSM's state)."""
+        from ..distributed.actctx import cache_layout, keeps_d_blocks
+
+        if self.cfg.family != "ssm":
+            return cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], rules)
+        lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["h"], rules)
+        return replace(lay, stationary=keeps_d_blocks(lay, self.cfg.d_model))
 
     def _rope(self, positions: torch.Tensor):
         if not self.cfg.use_rope or self.cfg.n_heads == 0:
@@ -255,7 +278,10 @@ class Model:
         return logits, self._pad_states(states, s_max)
 
     def _cache_blocks(self, params: Tree, states: Tree, s_max: int, lay) -> Tree:
-        """The sharded prefill's k and v (this rank's rows over the whole
+        """An SSM's mamba states come out of the sharded prefill already on
+        this rank's rows and ``d_inner`` block, the decode layout, so they
+        are returned as they are, with no collective.  The sharded
+        prefill's k and v (this rank's rows over the whole
         sequence, on the kv heads ``attention.rank_kv_heads`` gives it),
         padded to ``s_max`` → this rank's blocks of the caches in the decode
         layout (module docstring).  Where the kv heads split over ``model``
@@ -265,15 +291,18 @@ class Model:
         rank that has it; where the positions do not split, an all-gather
         takes the place of the all-to-all.  Where the q heads do not split,
         every rank has every kv head and keeps its positions."""
-        from ..distributed.actctx import cache_layout
         from ..distributed.collectives import all_gather, all_to_all
         from ..distributed.sharding import decode_rules
         from .attention import rank_kv_heads
 
         cfg, n = self.cfg, lay.n_model
+        cl = self.cache_layout(lay, s_max, decode_rules(lay.mesh))
+        if cfg.family == "ssm":
+            if tuple(states["h"].shape[1:3]) != (cl.b_loc, cl.di_loc):
+                raise ValueError(f"states {tuple(states['h'].shape)} are not the caches' block")
+            return states
         padded = self._pad_states(states, s_max)
         x = torch.stack([padded["k"], padded["v"]])        # [2, L, b, s_max, heads, hd]
-        cl = cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], decode_rules(lay.mesh))
         attn = params["stack"]["attn"]
         if attn["w_q"].shape[-2] == cfg.n_heads:
             x = x[:, :, :, cl.kv0:cl.kv0 + cl.kv_loc]
@@ -324,21 +353,24 @@ class Model:
     ) -> Tuple[torch.Tensor, Tree]:
         """One-token step → (logits [B, V], caches).  The caches are
         updated in place and returned.  On a rank mesh (module docstring)
-        ``s_max`` is the caches' whole length, which their blocks do not
-        tell."""
+        ``s_max`` is the attention caches' whole length, which their blocks
+        do not tell (an SSM needs none)."""
         if self.cfg.family == "encdec":
             logits, caches = ed.decode_step(params, token, int(pos), caches, self.cfg)
             return logits[:, 0], caches
         lay = self._layout({"tokens": token})
         if lay is not None:
-            from ..distributed.actctx import active, cache_layout
+            from ..distributed.actctx import active
 
-            if s_max is None:
+            ssm = self.cfg.family == "ssm"
+            if s_max is None and not ssm:
                 raise ValueError("a decode on a rank mesh needs the caches' length, s_max")
-            lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], active()[1])
-            if tuple(caches["k"].shape[1:3]) != (lay.b_loc, lay.kv_loc):
-                raise ValueError(f"caches {tuple(caches['k'].shape)} are not this rank's "
-                                 f"{lay.b_loc} rows and {lay.kv_loc} positions")
+            lay = self.cache_layout(lay, s_max or 0, active()[1])
+            leaf, want = ("h", lay.di_loc) if ssm else ("k", lay.kv_loc)
+            if tuple(caches[leaf].shape[1:3]) != (lay.b_loc, want):
+                raise ValueError(f"caches {tuple(caches[leaf].shape)} are not this rank's "
+                                 f"{lay.b_loc} rows and {want} "
+                                 f"{'channels' if ssm else 'positions'}")
             token = lay.rows(token)
         x = self._embed(params, token, lay)
         rope = self._rope(torch.tensor([int(pos)], device=x.device))

@@ -16,6 +16,29 @@ through the hand-written scan kernel (K4, ``kernels/ops.py``) instead, as
 the reference sends it through its Pallas kernel; that path has no
 gradient in either package.
 
+On a rank mesh (``lay``, the model's ``RankLayout``) the block runs
+Megatron-style over ``d_inner``, as GSPMD partitions the reference's
+block under ``PARAM_RULES``: the residual stream's block is gathered
+along the sequence (``mamba/in``), ``w_in_x`` and ``w_in_z`` are
+column-parallel (this rank's block of channels), the conv, ``dt_proj``,
+``dt_bias``, ``a_log``, ``d_skip`` and the scan (K4 under
+``ssm_impl="pallas"``) run on those channels alone, and ``w_out`` is
+row-parallel, its partial sums reduce-scattered back (``mamba/out``;
+summed where the sequence is whole).  ``w_dt``, ``w_b`` and ``w_c``
+contract over ``d_inner``: their partial products are summed over
+``model`` in one float32 ``psum`` (``mamba/dtbc``) and rounded to the
+compute dtype once after it, where one rank's product rounds once;
+``w_out``'s partial sums are float32 too.  Where ``d_inner`` does not
+split over ``model`` every rank holds every channel and runs the whole
+block, keeping its positions.  A decode tick
+whose batch does not split over ``data`` (``RankLayout.stationary``)
+keeps the ``d_model`` blocks of ``w_in_x``, ``w_in_z`` and ``w_out`` in
+place, as GSPMD partitions the reference's decode cell there: the input
+projections' float32 partial products over this rank's block of
+``d_model`` are summed over ``data`` (``mamba/in``), and the output's
+block of ``d_model``, summed over ``model``, is gathered over ``data``
+(``mamba/data``).
+
 Under a :class:`kernels.cost.CostCounter` the time loop counts by formula
 (``kernels.ops.scan_cost``, ``ssm_scan_addendum``'s per-layer share), its
 forward and its backward: on ``meta`` tensors :class:`_MetaScan` stands in
@@ -73,15 +96,23 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
     return out.to(x.dtype) + b
 
 
-def _ssm_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """Shared pre-scan projections: returns (xc, dt, B, C) with silu applied."""
+def _ssm_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig, lay=None):
+    """Shared pre-scan projections: returns (xc, dt, B, C) with silu applied.
+    ``lay``: ``x`` is this rank's block of the channels (module docstring),
+    so the products over ``d_inner`` are partial sums, summed over
+    ``model`` in float32."""
     xc = F.silu(x.float()).to(x.dtype)
-    dt = F.softplus(
-        ((xc @ p["w_dt"]) @ p["dt_proj"]).float() + p["dt_bias"].float()
-    )                                                        # [..., d_in] f32
-    b_mat = (xc @ p["w_b"]).float()
-    c_mat = (xc @ p["w_c"]).float()
-    return xc, dt, b_mat, c_mat
+    if lay is None:
+        low, b_mat, c_mat = xc @ p["w_dt"], xc @ p["w_b"], xc @ p["w_c"]
+    else:
+        from ..distributed.collectives import psum
+
+        w = torch.cat([p["w_dt"], p["w_b"], p["w_c"]], -1).float()
+        dtbc = psum(xc.float() @ w, lay.mesh, "model", "mamba/dtbc").to(x.dtype)
+        n = cfg.ssm_state
+        low, b_mat, c_mat = dtbc.split([w.shape[-1] - 2 * n, n, n], -1)
+    dt = F.softplus((low @ p["dt_proj"]).float() + p["dt_bias"].float())   # [..., d_in] f32
+    return xc, dt, b_mat.float(), c_mat.float()
 
 
 class _MetaScan(torch.autograd.Function):
@@ -172,16 +203,43 @@ def _scan_loop(x, dt, a, b_mat, c_mat, h):
     return torch.cat(ys, 1), h
 
 
-def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, return_state: bool = False):
+def _split(p: dict, cfg: ModelConfig, lay) -> bool:
+    """Whether this rank holds a block of the channels (``w_in_x``'s
+    columns) on a rank mesh."""
+    return lay is not None and p["w_in_x"].shape[-1] != cfg.d_inner
+
+
+def _out_proj(y: torch.Tensor, w_out: torch.Tensor, lay, split: bool) -> torch.Tensor:
+    """``y @ w_out``, on a rank mesh (``lay``) scattered to the residual
+    stream's block; where this rank holds a block of the channels
+    (``split``), its float32 partial products summed over ``model``
+    (``mamba/out``) and rounded once, where one rank's product rounds
+    once."""
+    if split:
+        out = lay.scatter_seq(y.float() @ w_out.float(), True, "mamba/out")
+        return out.to(y.dtype)
+    out = y @ w_out
+    return out if lay is None else lay.scatter_seq(out, False, "mamba/out")
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, return_state: bool = False,
+                lay=None):
     """Full-sequence forward: x [B,S,d] → [B,S,d] (+ final (conv, h) state).
 
     The returned state slots straight into :func:`mamba_decode` so prefill →
-    decode hand-off is exact.
+    decode hand-off is exact.  With ``lay`` (a rank mesh's ``RankLayout``;
+    module docstring), ``x`` is this rank's block of the residual stream
+    and ``p`` its blocks of the weights with ``d_model`` whole; the output
+    is this rank's block, and the state this rank's rows and channels: the
+    caches' block under ``ACT_RULES_DECODE`` (``d_inner`` over ``model``).
     """
+    split = _split(p, cfg, lay)
+    if lay is not None:
+        x = lay.gather_seq(x, "mamba/in")
     xp_raw = x @ p["w_in_x"]
     z = x @ p["w_in_z"]
     xp = _causal_depthwise_conv(xp_raw, p["conv_w"], p["conv_b"])
-    xc, dt, b_mat, c_mat = _ssm_inputs(p, xp, cfg)
+    xc, dt, b_mat, c_mat = _ssm_inputs(p, xp, cfg, lay if split else None)
     a = -torch.exp(p["a_log"].float())                        # [d_in, N]
 
     if cfg.ssm_impl == "pallas" and not return_state:
@@ -195,7 +253,7 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, return_state: bool =
 
     y = y + p["d_skip"].float() * xc.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["w_out"]
+    out = _out_proj(y, p["w_out"], lay, split)
     if not return_state:
         return out
     k = cfg.ssm_conv
@@ -209,15 +267,25 @@ def mamba_decode(
     cfg: ModelConfig,
     conv_state: torch.Tensor,          # [B, k-1, d_in] — last k-1 conv inputs
     h: torch.Tensor,                   # [B, d_in, N] f32
+    lay=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-token state update — O(1) in sequence length."""
-    xp = x @ p["w_in_x"]                                      # [B,1,d_in]
-    z = x @ p["w_in_z"]
+    """Single-token state update — O(1) in sequence length.  With ``lay``
+    (a rank mesh's decode ``RankLayout``), ``x`` is this rank's rows (and
+    block of ``d_model`` where the layout is ``stationary``), the states
+    its rows and block of channels, and the output's partial sums are
+    summed over ``model`` (module docstring)."""
+    split = _split(p, cfg, lay)
+    if lay is not None and lay.stationary:      # x: this rank's block of d_model
+        xz = lay.contract(x, torch.cat([p["w_in_x"], p["w_in_z"]], -1), "mamba/in")
+        xp, z = xz.chunk(2, -1)
+    else:
+        xp = x @ p["w_in_x"]                                  # [B,1,d_in]
+        z = x @ p["w_in_z"]
     window = torch.cat([conv_state, xp], dim=1)              # [B,k,d_in]
     new_conv_state = window[:, 1:]
     xconv = (window.float() * p["conv_w"].float().T).sum(1).to(x.dtype) + p["conv_b"]
     xconv = xconv[:, None, :]                                 # [B,1,d_in]
-    xc, dt, b_mat, c_mat = _ssm_inputs(p, xconv, cfg)
+    xc, dt, b_mat, c_mat = _ssm_inputs(p, xconv, cfg, lay if split else None)
     a = -torch.exp(p["a_log"].float())
     dtt, xt = dt[:, 0], xc[:, 0].float()                      # [B,d_in]
     bt, ct = b_mat[:, 0], c_mat[:, 0]                         # [B,N]
@@ -225,5 +293,7 @@ def mamba_decode(
     h = da * h + (dtt * xt)[..., None] * bt[:, None, :]
     y = torch.einsum("bin,bn->bi", h, ct) + p["d_skip"].float() * xt
     y = (y * F.silu(z[:, 0].float())).to(x.dtype)
-    out = (y @ p["w_out"])[:, None, :]
+    out = _out_proj(y[:, None, :], p["w_out"], lay, split)
+    if lay is not None and lay.stationary:
+        out = lay.whole_d(out, "mamba/data")
     return out, new_conv_state, h

@@ -17,23 +17,29 @@ the hybrid stack (``torch.utils.checkpoint``, the reference's
 ``"slot{s}"`` with ``L`` its periods — and each layer writes its slice in
 place.
 
-On a rank mesh a dense stack runs sharded (``lay``, the model's
+On a rank mesh a dense or SSM stack runs sharded (``lay``, the model's
 ``RankLayout``): the residual stream between layers is this rank's block
 (the reference's ``constrain(x, ("batch", "seq", None))`` at each layer),
 each layer's weights are gathered along ``d_model`` by one collective just
 before the layer runs and dropped after it, and the layer runs attention
-and MLP on this rank's heads and ``d_ff`` columns.  The gather lies
+and MLP on this rank's heads and ``d_ff`` columns, or the mamba block on
+its ``d_inner`` channels (``models/ssm.py``).  The gather lies
 inside the checkpointed unit, so a training pass under ``cfg.remat``
 gathers each layer's weights again when the backward pass recomputes the
 layer, and drops them after, as the reference's ZeRO-3 under
 ``jax.checkpoint`` does: a rank never holds more than one layer's
 gathered weights.  The recomputation stops at the layer's last saved
 tensor (``torch.utils.checkpoint``'s early stop, on by default), so it
-issues the layer's collectives up to its MLP's input gather, each counted
-as the backward pass's (``collectives.recomputing``).  A decode tick on a
-rank mesh gathers each layer's weights the same way, and each layer
+issues the layer's collectives up to its MLP's input gather (a mamba
+layer's up to its ``mamba/dtbc`` sum), each counted as the backward
+pass's (``collectives.recomputing``).  A decode tick on a rank mesh
+gathers each layer's weights the same way, and each attention layer
 writes the new token's k and v into this rank's block of the caches
-where the block holds its position.
+where the block holds its position; a mamba layer updates its rows and
+channels of the conv window and the state.  Where the decode's batch
+does not split over ``data`` an SSM stack keeps its ``d_model`` blocks
+in place instead (``RankLayout.stationary``; ``ssm.mamba_decode``).  The
+hybrid stack is not sharded.
 """
 from __future__ import annotations
 
@@ -137,7 +143,7 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
     """→ (x, aux, state): the MoE balance term (float32, zero without an
     MoE), and the layer's cache contribution — attn: {"k","v"} over the S
     positions seen; mamba: {"conv","h"} final — or None.  ``lay``: the
-    dense layer on a rank mesh (module docstring)."""
+    dense or mamba layer on a rank mesh (module docstring)."""
     state = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
@@ -145,9 +151,9 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
         if collect_state:
             state = {"k": k, "v": v}
     elif collect_state:
-        y, state = mamba_block(lp["mamba"], h, cfg, return_state=True)
+        y, state = mamba_block(lp["mamba"], h, cfg, return_state=True, lay=lay)
     else:
-        y = mamba_block(lp["mamba"], h, cfg)
+        y = mamba_block(lp["mamba"], h, cfg, lay=lay)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
@@ -163,11 +169,12 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
 def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
                         ffn: str, cache: Dict[str, torch.Tensor], pos: int,
                         lay=None) -> torch.Tensor:
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    keep = lay is not None and lay.stationary        # an SSM layer's d_model blocks in place
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps, lay if keep else None)
     if mixer == "attn":
         y, _, _ = decode_attention(lp["attn"], h, cfg, rope, cache["k"], cache["v"], pos, lay)
     else:
-        y, conv_c, h_c = mamba_decode(lp["mamba"], h, cfg, cache["conv"], cache["h"])
+        y, conv_c, h_c = mamba_decode(lp["mamba"], h, cfg, cache["conv"], cache["h"], lay)
         cache["conv"].copy_(conv_c)
         cache["h"].copy_(h_c)
     x = x + y
@@ -207,8 +214,8 @@ def apply_stack_full(
     for the stacks without MoE.  With ``cfg.remat``, no state to collect
     and grad enabled, each layer (each period of the hybrid stack) is
     checkpointed: its activations are recomputed in the backward pass
-    instead of kept.  ``lay``: a dense stack on a rank mesh (module
-    docstring)."""
+    instead of kept.  ``lay``: a dense or SSM stack on a rank mesh
+    (module docstring)."""
     n_units, slots = _units(cfg)
     layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
 
@@ -258,13 +265,14 @@ def apply_stack_decode(
     """One-token pass → (x, caches); each layer writes its slice of the
     stacked caches in place, and the same dict is returned.  An MoE
     layer's auxiliary loss is dropped, as in the reference.  ``lay``: a
-    dense stack on a rank mesh under the decode rules, whose caches are
-    this rank's blocks (module docstring; ``attention.decode_attention``)."""
+    dense or SSM stack on a rank mesh under the decode rules, whose caches
+    are this rank's blocks (module docstring; ``attention.decode_attention``,
+    ``ssm.mamba_decode``)."""
     n_units, slots = _units(cfg)
     layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
     for ui in range(n_units):
         up, cu = _index_tree(stack, ui), _index_tree(caches, ui)
-        if lay is not None:
+        if lay is not None and not lay.stationary:
             up = lay.gather_params(up, layer_defs, "layer")
         for key, mixer, ffn in slots:
             lp, cc = (up, cu) if key is None else (up[key], cu[key])

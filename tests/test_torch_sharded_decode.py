@@ -22,7 +22,8 @@ stay whole on every rank; (2, 2); 30 positions, which ``model`` 4 does
 not divide (every rank holds the whole cache); a batch of 3 on ``data``
 2 (every rank holds every row); a ``pos`` past the cache's end (the write
 clamped to the last position); a (2, 2, 2) ``("pod", "data", "model")``
-mesh; and the serve handoff on (2, 2) and (1, 4) — the sharded prefill's
+mesh; a tied head (the embedding's vocab-parallel block as the head); and
+the serve handoff on (2, 2) and (1, 4) — the sharded prefill's
 caches, already in the decode layout, then 3 teacher-forced ticks —
 against one rank's prefill and ticks.  Checked: logits and caches within
 1e-5; every rank's counted collectives equal to
@@ -71,7 +72,9 @@ CASES = {
     "batch_undivided_2x2": ((2, 2), 3, S_MAX, [19]),
     "clamped_2x2": ((2, 2), 4, S_MAX, [40]),     # written at 31
     "pod_2x2x2": ((2, 2, 2), 4, S_MAX, [19]),
+    "tied_2x2": ((2, 2), 4, S_MAX, [19]),         # the head is the embedding's block
 }
+TIED = {"tied_2x2"}
 # name: (mesh, batch, prompt length, ticks) — prefill, then teacher-forced ticks
 HANDOFF = {"handoff_2x2": ((2, 2), 4, 12, 3), "handoff_1x4": ((1, 4), 2, 12, 3)}
 WORLD = {1: [], 4: [], 8: ["cell_2x4"]}
@@ -149,8 +152,15 @@ PMAX_MODULE = textwrap.dedent(
 )
 
 
-def _cfg():
-    return get_config(ARCH, smoke=True).with_(**F32)
+def _cfg(name=None):
+    cfg = get_config(ARCH, smoke=True).with_(**F32)
+    return cfg.with_(tie_embeddings=True) if name in TIED else cfg
+
+
+def _params(name, ref):
+    """The case's whole parameters: the reference's, without ``lm_head``
+    for a tied head."""
+    return {k: v for k, v in ref["params"].items() if not (name in TIED and k == "lm_head")}
 
 
 def _decode_rules(mesh_shape):
@@ -208,8 +218,11 @@ def _case(name, ref):
         return dict(mesh=mesh, prefill=dict(tokens=_token(b, s, 41), s_max=S_MAX),
                     decode=[dict(tokens=_token(b, ticks, 43), host_caches=True)])
     mesh, b, s_max, positions = CASES[name]
-    return dict(mesh=mesh, decode=[dict(tokens=_token(b), caches=_caches(b, s_max), pos=p,
+    case = dict(mesh=mesh, decode=[dict(tokens=_token(b), caches=_caches(b, s_max), pos=p,
                                         host_caches=True) for p in positions])
+    if name in TIED:
+        case.update(cfg=dict(F32, tie_embeddings=True), params=_params(name, ref))
+    return case
 
 
 @pytest.fixture(scope="module")
@@ -234,8 +247,8 @@ def port(ref):
 def _one_rank(name, ref):
     """The port's one-rank model on the whole parameters → per entry, per
     tick (logits, caches after the tick) as numpy."""
-    model = Model(_cfg())
-    p = params_from_jax(ref["params"], "cpu")
+    model = Model(_cfg(name))
+    p = params_from_jax(_params(name, ref), "cpu")
     case = _case(name, ref)
     out = []
     with torch.no_grad():
@@ -359,7 +372,7 @@ def test_collectives_equal_formula(name, ref, port):
     for i, entry in enumerate(case["decode"]):
         tokens = entry["tokens"]
         s_max = entry["caches"]["k"].shape[2] if "caches" in entry else S_MAX
-        want = sharded_collectives(_cfg(), shape, _decode_rules(shape), tokens.shape[0], 1,
+        want = sharded_collectives(_cfg(name), shape, _decode_rules(shape), tokens.shape[0], 1,
                                    4, 4, "decode", s_max=s_max)
         for r in port[name]:
             assert all(ops == want for ops in r["decode"][i]["ops"])
@@ -428,9 +441,10 @@ def test_cache_layout_reads_the_decode_rules(s_max, b, kv):
 
 
 def test_decode_on_a_rank_mesh_refuses_what_it_cannot_place():
-    """Without ``s_max``, with caches that are not the rank's blocks, with
-    a tied head, or with caches whose batch would lie otherwise than the
-    residual stream's, the sharded decode raises before any collective."""
+    """Without ``s_max``, with caches that are not the rank's blocks, or
+    with caches whose batch would lie otherwise than the residual
+    stream's, the sharded decode raises before any collective (a tied
+    head decodes: ``tied_2x2``)."""
     mesh = mesh_mod.Mesh(("data", "model"), (2, 4), None, 6, {})
     rules = sharding.decode_rules(mesh)
     model = Model(_cfg())
@@ -441,8 +455,6 @@ def test_decode_on_a_rank_mesh_refuses_what_it_cannot_place():
             model.decode({}, token, 3, whole)
         with pytest.raises(ValueError, match="not this rank's"):
             model.decode({}, token, 3, whole, S_MAX)
-        with pytest.raises(NotImplementedError, match="tied"):
-            Model(_cfg().with_(tie_embeddings=True)).decode({}, token, 3, whole, S_MAX)
     pod = mesh_mod.Mesh(("pod", "data", "model"), (2, 2, 2), None, 3, {})
     with actctx.activation_sharding(pod, {"batch": ("data",), "vocab": "model"}):
         lay = actctx.rank_layout(4, 1, 64)

@@ -33,7 +33,7 @@ collectives, backward included, equal to
 ``launch/sharded.py::sharded_collectives(step="train")``; the wire bytes
 a step against the compiled cell's (by the rule below, fixed before the
 first run); ``Model.loss`` under autograd on a rank mesh still raising
-for the other families and a tied head.
+for the MoE, hybrid, encoder-decoder and VLM families.
 
 Each multi-rank run has a wall-clock limit (``run_ranks``' ``timeout_s``)
 and every group a 60 s timeout, so a rank that fails or waits on a
@@ -330,9 +330,11 @@ def _fake_rank_mesh(shape=(1, 2), rank=0):
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b", "whisper-base",
                                   "falcon-mamba-7b", "internvl2-1b", "tied-dense"])
 def test_loss_under_autograd_on_ranks_raises_off_the_dense_family(arch):
-    """A rank mesh's context with autograd on: every family but the dense
-    one, and a dense model with a tied head, raise before any collective
-    (their sharded train step is not ported)."""
+    """A rank mesh's context with autograd on: the MoE, hybrid,
+    encoder-decoder and VLM families raise before any collective (their
+    sharded train step is not ported); the SSM family and a dense model
+    with a tied head take the sharded path's layout instead (their train
+    step on ranks: ``tests/test_torch_sharded_ssm.py``)."""
     if arch == "tied-dense":
         cfg = get_config(ARCH, smoke=True).with_(tie_embeddings=True)
     else:
@@ -340,8 +342,13 @@ def test_loss_under_autograd_on_ranks_raises_off_the_dense_family(arch):
     model = Model(cfg)
     batch = {"tokens": torch.zeros(2, 8, dtype=torch.long)}
     with actctx.activation_sharding(_fake_rank_mesh(), {"batch": ("data",), "seq": "model"}):
-        with torch.enable_grad(), pytest.raises(NotImplementedError):
-            model.loss({}, batch)
+        with torch.enable_grad():
+            if arch in ("falcon-mamba-7b", "tied-dense"):
+                lay = model._layout(batch)
+                assert (lay.batch, lay.seq_sharded, lay.b_loc, lay.s_loc) == (("data",), True, 2, 4)
+                return
+            with pytest.raises(NotImplementedError):
+                model.loss({}, batch)
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (1, 4), (2, 2, 2)])
