@@ -216,6 +216,29 @@ result lines are printed:
               ``sharded_collectives``; (e) K4 against its plain version at
               d_in 2 048 and 4 096 (B 2, S 1 024), timed; (f) per rank the
               step, tick and eval times, wire bytes by kind, memory.
+16. sharded moe — moonshot-v1-16b-a3b at full width sharded over 4 ranks
+              of the one card (gloo, host-staged), the experts over
+              ``model``, the rules from ``policy_rules``, the one-rank
+              references first: (a) 2 layers in float32 under the
+              baseline (the sharded gather dispatch) on (1, 4) and (2, 2):
+              the prefill of 2 × 512, the loss of 2 × 1 024 and 4 ticks
+              fed from the prefill's caches within 5e-5 of one rank, with
+              each rank's routing against one rank's reported, and on
+              (2, 2) one train step (accum 2) whose loss and grad norm are
+              within 1e-5 of one rank's; (b) 24 of 48 layers in bf16 on
+              (1, 4) under the baseline: the prefill's first tokens equal
+              or a near tie (its logits' distance from float32 reported
+              beside one rank's), the loss of 2 × 1 024 no farther from
+              float32 than 1.5 × one rank's bf16 loss and within 1e-2 of
+              it, 8 ticks reported; (c) 2 layers on (1, 4) under ``opt``
+              (the a2a dispatch on each rank's block of the stream, at a
+              capacity no bucket overflows): a float32 prefill within 5e-5
+              of one rank's, a bf16 prefill's first tokens by (b)'s rule,
+              a bf16 train step whose loss is within 1e-3 and grad norm
+              within 0.5 % of one rank's; (d) every rank's collectives equal to
+              ``sharded_collectives``, K2 once a layer on each rank in
+              every prefill and eval; per rank the step and tick times,
+              wire bytes by kind, memory.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -231,8 +254,9 @@ kernels in one call.
     python3 chip_smoke.py --sharded-train
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --sharded-ssm
+    python3 chip_smoke.py --sharded-moe
 
-build the kernels and run phase 14, 13 or 15 alone (its line only).
+build the kernels and run phase 14, 13, 15 or 16 alone (its line only).
 """
 from __future__ import annotations
 
@@ -2738,6 +2762,9 @@ EXPERT_BUDGET = 70 * 2**30        # of the card's 80 GiB
 EXPERT_RANK_OVERHEAD = 0.8e9     # a rank's CUDA context and activations
 EXPERT_SERVE = dict(slots=1, s_max=640, requests=2, prompt_len=512, max_new=4)
 EXPERT_LIMIT = 600               # seconds for one multi-rank run
+# Served depth caps for the script's time (phi3.5-moe: 21 of 32 layers fit
+# by the reckoning; PERF.md §4).
+EXPERT_MAX_LAYERS = {"phi3.5-moe-42b-a6.6b": 12}
 # a2a against the one-rank gather, float32: the same products over other
 # buffer shapes, and the balance sums over the ranks in another order.
 EXPERT_TOL = 1e-4
@@ -2790,11 +2817,12 @@ def _rank_mesh_bytes(cfg, serve):
 
 
 def _expert_depth(arch, budget):
-    """(layers, bytes): the largest depth of ``arch`` whose reckoning fits."""
+    """(layers, bytes): the largest depth of ``arch`` whose reckoning fits,
+    up to its cap in EXPERT_MAX_LAYERS."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    for n in range(cfg.n_layers, 0, -1):
+    for n in range(EXPERT_MAX_LAYERS.get(arch, cfg.n_layers), 0, -1):
         need = _rank_mesh_bytes(cfg.with_(n_layers=n), EXPERT_SERVE)
         if need <= budget:
             return n, need
@@ -3906,6 +3934,438 @@ def phase_sharded_ssm(free_before):
     return out
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+# moonshot-v1-16b-a3b sharded over 4 ranks of the one card
+# (``launch/sharded.py``; gloo, host-staged, as phases 12–15), the experts
+# over ``model`` by PARAM_RULES.  (a) f32 at 2 layers under the baseline
+# (the sharded gather dispatch) on (1, 4) and (2, 2): the prefill of 2 ×
+# 512 (into caches of MOE["s_max"]), the loss of MOE["loss"], MOE["ticks"]
+# ["f32"] ticks fed from the prefill's caches with one rank's greedy
+# tokens, and on (2, 2) one train step (batch MOE["train"], accum 2);
+# (b) bf16 on (1, 4) under the baseline at MOE["bf16_layers"] (the memory
+# reckoning in PERF.md: 14.0 GB of parameters a rank at 48): the prefill of
+# phase 6's first 2 prompts, the loss of MOE["loss"], MOE["ticks"]["bf16"]
+# ticks; (c) on (1, 4) under ``opt`` (the a2a dispatch on each rank's block
+# of the stream) at MOE["opt_layers"]: one prefill in bf16 and one in
+# float32, and a bf16 train step (ACT_RULES_TRAIN_OPT at 28.1 G
+# parameters), at MOE_OPT_CF, a capacity no rank's a2a bucket can overflow
+# (phase 12's), since the a2a's per-rank capacity drops other entries than
+# the one-rank gather's global capacity.  The one-rank references run
+# first, on the card, and are freed.  Depths by the script's time (PERF.md
+# §4: this phase took 178.7 s with (b) at 48 layers and (c) at 4): (b) at
+# 24 of 48 layers, (c) at 2.
+MOE = dict(arch="moonshot-v1-16b-a3b", meshes=((1, 4), (2, 2)), prompts=2, prompt_len=512,
+           s_max=1024, loss=(2, 1024), ticks=dict(f32=4, bf16=8), train=(4, 1024), accum=2,
+           bf16_layers=24, opt_layers=2, limit=900)
+# Gates, fixed before the first run.  (a) logits, losses and ticks within
+# MOE_F32_TOL of one rank; the train step's loss within MOE_TRAIN_TOL and
+# its grad norm within MOE_TRAIN_TOL of itself.  (b) the prefill's logits
+# no farther from float32 than SHARDED_BF16_FACTOR × one rank's bf16, the
+# first tokens equal, or a near tie: the float32 logits of the two tokens
+# apart by no more than the two bf16 rows' distances from float32
+# together; the loss no farther from float32 than SHARDED_BF16_FACTOR ×
+# one rank's bf16 loss, and within TRAIN_BF16_LOSS of it.  (c) the float32
+# prefill's logits within MOE_F32_TOL of one rank's, the bf16 prefill's
+# first tokens by (b)'s rule; the train step's loss within MOE_OPT_LOSS,
+# its grad norm within MOE_OPT_NORM of itself.  (d) every rank's ops equal
+# to ``sharded_collectives``; K2 once a layer in every prefill and eval.
+# The bf16 prefills' logits were first held to SHARDED_BF16_FACTOR × one
+# rank's distance from float32 (the dense model's rule) and it did not
+# hold for this model (PERF.md §6): (b) 1.37 × at 48 layers, 1.75 × at
+# 24; (c) 1.87 × at 4 layers, 0.96 × at 2.  In bf16 the ranks' sums round
+# apart from one rank's, a router near tie flips, and the token goes to
+# another expert, which moves its output by its own size: the ranks' and
+# one rank's distances from float32 are then alike in size and the ratio
+# varies around 1.4.  The logits' ratio is reported; the rule holds on the
+# loss, whose mean over 2 048 positions does not turn on a few tokens, and
+# the sharded dispatch is held to one rank in float32 ((a), and (c)'s
+# float32 prefill).
+MOE_F32_TOL = 5e-5
+MOE_TRAIN_TOL = 1e-5
+MOE_OPT_LOSS = 1e-3
+MOE_OPT_NORM = 5e-3
+MOE_OPT_CF = 11.0                 # ceil(E / k): c_e ≥ a rank's tokens
+MOE_NEAR_TIE = 2.0 ** -7          # tests/test_torch_models.py's NEAR_TIE
+MOE_SERVE = dict(attn_impl="pallas", remat=False)
+MOE_F32 = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+
+
+def _moe_reckoning(cfg):
+    """The memory reckoning's elements (PERF.md): one layer's, its
+    attention's, the embedding's and head's, and the bf16 bytes a rank of
+    (1, 4) holds at MOE["bf16_layers"]."""
+    import math
+
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+
+    leaves = list(flatten(Model(cfg.with_(n_layers=1)).defs()))
+    layer = sum(math.prod(p.shape) for path, p in leaves if path[0] == "stack")
+    attn = sum(math.prod(p.shape) for path, p in leaves if path[:2] == ("stack", "attn"))
+    rest = sum(math.prod(p.shape) for path, p in leaves if path[0] != "stack")
+    whole = MOE["bf16_layers"] * layer + rest
+    return dict(layer=layer, attention=attn, router_and_experts=layer - attn,
+                embed_and_head=rest, elements=whole, bf16_bytes=2 * whole,
+                bf16_bytes_a_rank=2 * whole // 4)
+
+
+def _host_tree(tree):
+    """A tree's tensors copied to host memory."""
+    return {k: _host_tree(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def _moe_routing(records):
+    """Each recorded MoE call's expert ids, kept entries and probabilities,
+    on the host."""
+    from repro_torch.models import moe
+
+    return [dict(moe.routing(r), probs=r["probs"].cpu()) for r in records]
+
+
+def _moe_references(cfg, prompts, loss_tokens, train_tokens, dev):
+    """The one-rank model on the card from SEED's parameters: (a) f32 at 2
+    layers: the prefill's logits and routing, MOE["ticks"]["f32"] greedy
+    ticks (tokens fed, logits), the loss and its routing, one train step;
+    (b) bf16 at MOE["bf16_layers"]: the same prefill, ticks and loss, and
+    each in float32 throughout, layer by layer; (c) at MOE["opt_layers"]
+    and MOE_OPT_CF: the prefill's logits and routing in bf16 (and in
+    float32 throughout) and with float32 parameters, one bf16 train step."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    out = {}
+    legs = (("f32", cfg.with_(**MOE_SERVE, **MOE_F32)),
+            ("bf16", cfg.with_(**MOE_SERVE, n_layers=MOE["bf16_layers"])))
+    for key, c in legs:
+        model = Model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        tok = torch.as_tensor(prompts, device=dev).long()
+        with torch.no_grad():
+            with moe.recording() as rec:
+                logits, caches = model.prefill(params, {"tokens": tok}, MOE["s_max"])
+            routing = _moe_routing(rec)
+            fed, ticks, last = [], [], logits
+            for t in range(MOE["ticks"][key]):
+                fed.append(last.argmax(-1)[:, None])
+                last, caches = model.decode(params, fed[-1], prompts.shape[1] + t, caches)
+                ticks.append(last.float().cpu())
+            del caches
+            with moe.recording() as rec:
+                loss, _ = model.loss(params, {"tokens": torch.as_tensor(loss_tokens, device=dev)
+                                              .long()})
+            loss_routing = _moe_routing(rec)
+        fed = torch.cat(fed, 1).cpu().numpy()
+        out[key] = dict(logits=logits.float().cpu(), loss=float(loss), fed=fed,
+                        ticks=torch.stack(ticks), routing=routing, loss_routing=loss_routing)
+        if key == "bf16":
+            out[key]["logits_f32"] = _prefill_logits_f32(c, params, prompts, dev).cpu()
+            out[key]["loss_f32"] = _loss_f32(c, params, loss_tokens, dev)
+            out[key]["ticks_f32"] = _ticks_f32(c, params, prompts, fed, dev).cpu()
+        del params
+        _free()
+    out["f32"]["train"] = _train_reference(cfg.with_(**MOE_F32), train_tokens, None, 1,
+                                           MOE["accum"], dev)
+    out["f32"]["train"]["m"] = _host_tree(out["f32"]["train"]["m"])   # the card's for the ranks
+    _free()
+    opt = dict(MOE_SERVE, n_layers=MOE["opt_layers"], capacity_factor=MOE_OPT_CF)
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    for key, c in (("opt", cfg.with_(**opt)), ("opt_f32", cfg.with_(**opt, **f32))):
+        model = Model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        with torch.no_grad(), moe.recording() as rec:
+            logits, _ = model.prefill(params, {"tokens": torch.as_tensor(prompts, device=dev)
+                                               .long()}, prompts.shape[1])
+        out[key] = dict(logits=logits.float().cpu(), routing=_moe_routing(rec))
+        if key == "opt":
+            out[key]["logits_f32"] = _prefill_logits_f32(c, params, prompts, dev).cpu()
+        del params, logits
+        _free()
+    out["opt"]["train"] = _train_reference(cfg.with_(n_layers=MOE["opt_layers"],
+                                                     capacity_factor=MOE_OPT_CF),
+                                           train_tokens, None, 1, MOE["accum"], dev)
+    out["opt"]["train"].pop("m")
+    _free()
+    return out
+
+
+def _routing_agreement(got, want, b, rows, positions):
+    """A rank's routing of each MoE call (its ``rows`` of the batch of
+    ``b``, its ``positions`` of the sequence) against one rank's: the
+    share of (token, choice) entries with the same expert and of those
+    kept alike, and the differing ids that are not near ties (MOE_NEAR_TIE
+    of the one-rank probabilities), over every call and in the first."""
+    out = dict(calls=len(got), calls_one_rank=len(want))
+    same = kept = total = far = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        pick = lambda x: x.reshape(b, -1, *x.shape[1:])[  # noqa: E731
+            rows[0]:rows[1], positions[0]:positions[1]].reshape(-1, *x.shape[1:])
+        ids, want_ids, probs = g["gate_idx"], pick(w["gate_idx"]), pick(w["probs"])
+        for t, j in (ids != want_ids).nonzero().tolist():
+            a, c = float(probs[t, want_ids[t, j]]), float(probs[t, ids[t, j]])
+            far += abs(a - c) > MOE_NEAR_TIE * max(a, c)
+        same += int((ids == want_ids).sum())
+        kept += int((g["kept"] == pick(w["kept"])).sum())
+        total += ids.numel()
+        if i == 0:
+            out.update(first_call_ids_equal=same / total, first_call_flips_not_near_tie=far)
+    return dict(out, ids_equal=same / max(total, 1), kept_equal=kept / max(total, 1),
+                flips_not_near_tie=far)
+
+
+def _moe_first_tokens(logits, ref, key):
+    """(b)'s first-token rule: each row's argmax equal to one rank's, or a
+    near tie: the float32 logits of the two tokens apart by no more than
+    the two bf16 rows' distances from float32 together, the most by which
+    bf16 rounding can reorder them."""
+    l16, l32 = ref[key]["logits"], ref[key]["logits_f32"]
+    got, want = logits.argmax(-1), l16.argmax(-1)
+    noise = (l16 - l32).abs().max(-1).values + (logits - l32).abs().max(-1).values
+    ok = [bool(g == w or abs(float(l32[i, g] - l32[i, w])) <= float(noise[i]))
+          for i, (g, w) in enumerate(zip(got.tolist(), want.tolist()))]
+    return dict(first_tokens=got.tolist(), first_tokens_one_rank=want.tolist(), near_tie_ok=ok)
+
+
+def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails):
+    """(a)/(b)/(c)/(d) of a prefill (and decode and loss) case → its report."""
+    import torch
+
+    from repro_torch.distributed.sharding import decode_rules
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharded import assemble_logits, assemble_tick, sharded_collectives
+
+    err = lambda a, c: float((a - c).abs().max())  # noqa: E731
+    size = 4 if ccfg.compute_dtype == "float32" else 2
+    mesh = dict(zip(("data", "model"), case["mesh"]))
+    r0 = ranks[0]
+    b, v = case["prefill"]["tokens"].shape[0], ccfg.vocab_size
+    steps = [s for s in ("prefill", "loss") if s in case]
+    want = {s: sharded_collectives(ccfg, mesh, r0["rules"], *case[s]["tokens"].shape, size, size,
+                                   s, param_rules=r0["param_rules"],
+                                   s_max=case[s].get("s_max"))
+            for s in steps}
+    for s, ops in want.items():
+        if any(r[s]["ops"] != ops for r in ranks):
+            fails.append(f"(d) {label} {s}: a rank's ops differ from the formula")
+    logits = assemble_logits(ranks, b, v)
+    out = dict(collectives={s: dict(count=len(ops), wire_bytes=report_of(ops).by_kind())
+                            for s, ops in want.items()},
+               rules=r0["rules"], param_rules=r0["param_rules"],
+               init_s=[r["init_s"] for r in ranks],
+               params_allocated=[r["params_allocated"] for r in ranks],
+               max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+               finite=bool(torch.isfinite(logits).all()))
+    for s in steps:
+        out[s] = dict(ms=[r[s]["ms"] for r in ranks], staging_s=[r[s]["staging_s"] for r in ranks],
+                      k2_launches=[r[s]["k2_launches"] for r in ranks])
+        if any(k != ccfg.n_layers for k in out[s]["k2_launches"]):
+            fails.append(f"(d) {label} {s}: K2 launched {out[s]['k2_launches']} times for "
+                         f"{ccfg.n_layers} layers")
+    n_data, n_model = mesh["data"], mesh["model"]
+    for s, tokens in (("prefill", "routing"), ("loss", "loss_routing")):
+        if s in case and tokens in ref[key]:
+            bs, sl = case[s]["tokens"].shape
+            split = ccfg.moe_impl == "a2a" and r0["rules"].get("seq") == "model"
+            out[s]["routing"] = [_routing_agreement(
+                r[s]["routing"], ref[key][tokens], bs,
+                (r["coords"]["data"] * bs // n_data, (r["coords"]["data"] + 1) * bs // n_data),
+                (r["coords"]["model"] * sl // n_model, (r["coords"]["model"] + 1) * sl // n_model)
+                if split else (0, sl))
+                for r in ranks]
+    if "loss" in case:
+        out["loss"].update(losses=[r["loss"]["loss"] for r in ranks],
+                           one_rank=ref[key]["loss"], aux=[r["loss"]["aux"] for r in ranks])
+        out["finite"] &= all(np.isfinite(r["loss"]["loss"]) for r in ranks)
+    tag = "(a)" if key == "f32" else "(b)" if key == "bf16" else "(c)"
+    if size == 4:
+        out.update(logits_err=err(logits, ref[key]["logits"]), tolerance=MOE_F32_TOL,
+                   loss_err=max((abs(r["loss"]["loss"] - ref[key]["loss"]) for r in ranks
+                                 if "loss" in case), default=0.0))
+        if not (out["logits_err"] <= MOE_F32_TOL and out["loss_err"] <= MOE_F32_TOL):
+            fails.append(f"{tag} {label}: logits {out['logits_err']}, loss {out['loss_err']}")
+    else:
+        l32, l16 = ref[key]["logits_f32"], ref[key]["logits"]
+        out.update(ranks_vs_f32=err(logits, l32), one_rank_vs_f32=err(l16, l32),
+                   ranks_vs_one_rank=err(logits, l16), bound_factor=SHARDED_BF16_FACTOR,
+                   **_moe_first_tokens(logits, ref, key))
+        if "loss" in case:
+            out["loss"].update(vs_one_rank=max(abs(g - ref[key]["loss"])
+                                               for g in out["loss"]["losses"]),
+                               vs_float32=max(abs(g - ref[key]["loss_f32"])
+                                              for g in out["loss"]["losses"]),
+                               one_rank_vs_float32=abs(ref[key]["loss"] - ref[key]["loss_f32"]))
+        out["ratio_vs_f32"] = out["ranks_vs_f32"] / out["one_rank_vs_f32"]
+        if "loss" in case:
+            loss = out["loss"]
+            if not (loss["vs_float32"] <= SHARDED_BF16_FACTOR * loss["one_rank_vs_float32"]
+                    and loss["vs_one_rank"] <= TRAIN_BF16_LOSS):
+                fails.append(f"{tag} {label}: loss {loss['vs_float32']} from float32 against "
+                             f"one rank's {loss['one_rank_vs_float32']}, "
+                             f"{loss['vs_one_rank']} from one rank's")
+        if not all(out["near_tie_ok"]):
+            fails.append(f"{tag} {label}: first tokens {out['first_tokens']} against "
+                         f"{out['first_tokens_one_rank']}, not a near tie")
+    if not out["finite"]:
+        fails.append(f"{label}: not finite")
+    if "decode" not in case:
+        return out
+    drules = decode_rules(Mesh(tuple(mesh), tuple(mesh.values())))
+    bt = case["decode"][0]["tokens"].shape[0]
+    want = sharded_collectives(ccfg, mesh, drules, bt, 1, size, size, "decode",
+                               s_max=case["prefill"]["s_max"])
+    if any(ops != want for r in ranks for ops in r["decode"][0]["ops"]):
+        fails.append(f"(d) {label} decode: a rank's ops differ from the formula")
+    n = len(r0["decode"][0]["ms"])
+    got = [assemble_tick(ranks, 0, t, bt, v) for t in range(n)]
+    refs = ref[key]["ticks"]
+    rep = dict(ms=[r["decode"][0]["ms"] for r in ranks],
+               staging_s=[r["decode"][0]["staging_s"] for r in ranks],
+               kv_block=[r["decode"][0]["kv"] for r in ranks],
+               k3_launches=[r["decode"][0]["k3_launches"] for r in ranks],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               max_memory_allocated=[r["decode"][0]["max_memory_allocated"] for r in ranks],
+               finite=all(bool(torch.isfinite(g).all()) for g in got),
+               ranks_vs_one_rank=[err(g, w) for g, w in zip(got, refs)],
+               greedy_shared_with_one_rank=sum(int((g.argmax(-1) == o.argmax(-1)).sum())
+                                               for g, o in zip(got, refs)),
+               greedy_of=sum(int(g.shape[0]) for g in got))
+    if key == "f32":
+        rep["tolerance"] = MOE_F32_TOL
+        if not max(rep["ranks_vs_one_rank"]) <= MOE_F32_TOL:
+            fails.append(f"(a) {label} decode: {rep['ranks_vs_one_rank']} against one rank")
+    else:
+        f32 = ref[key]["ticks_f32"]
+        rep.update(ranks_vs_f32=[err(g, w) for g, w in zip(got, f32)],
+                   one_rank_vs_f32=[err(o, w) for o, w in zip(refs, f32)])
+    if not rep["finite"]:
+        fails.append(f"{label} decode: not finite")
+    out["decode"] = rep
+    return out
+
+
+def _moe_train_checks(ranks, case, c, refs, label, fails):
+    """(a)/(c)/(d) of a train case against the one-rank step."""
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.sharded import sharded_collectives
+
+    f32 = c.compute_dtype == "float32"
+    size = 4 if f32 else 2
+    r0 = ranks[0]
+    want = sharded_collectives(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
+                               *MOE["train"], size, size, "train", MOE["accum"],
+                               r0["param_rules"])
+    if any(r["train"]["ops"] != want for r in ranks):
+        fails.append(f"(d) {label}: a rank's train ops differ from the formula")
+    loss_err = max(abs(r["train"]["loss"][0] - refs["loss"][0]) for r in ranks)
+    norm_err = max(abs(r["train"]["grad_norm"][0] - refs["grad_norm"][0]) / refs["grad_norm"][0]
+                   for r in ranks)
+    finite = all(np.isfinite(r["train"]["loss"] + r["train"]["grad_norm"]).all() for r in ranks)
+    out = dict(rules=r0["rules"], param_rules=r0["param_rules"], moe_impl=c.moe_impl,
+               losses=[r["train"]["loss"] for r in ranks],
+               grad_norms=[r["train"]["grad_norm"] for r in ranks],
+               one_rank=dict(loss=refs["loss"], grad_norm=refs["grad_norm"],
+                             max_memory_allocated=refs["max_memory_allocated"],
+                             seconds=refs["seconds"]),
+               step_ms=[r["train"]["ms"] for r in ranks],
+               k2_launches=[r["train"]["k2_launches"] for r in ranks],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               init_s=[r["init_s"] for r in ranks],
+               params_allocated=[r["params_allocated"] for r in ranks],
+               max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+               loss_err=loss_err, grad_norm_rel_err=norm_err)
+    if f32:
+        m_err = _m_errors(ranks, case["mesh"], refs["m"], r0["param_rules"], c)
+        out.update(m_rel_err_max=max(m_err.values()),
+                   tolerance=dict(loss=MOE_TRAIN_TOL, grad_norm=MOE_TRAIN_TOL))
+        if not (loss_err <= MOE_TRAIN_TOL and norm_err <= MOE_TRAIN_TOL and finite):
+            fails.append(f"(a) {label}: loss {loss_err}, grad norm {norm_err} against one rank")
+    else:
+        out["tolerance"] = dict(loss=MOE_OPT_LOSS, grad_norm=MOE_OPT_NORM)
+        if not (loss_err <= MOE_OPT_LOSS and norm_err <= MOE_OPT_NORM and finite):
+            fails.append(f"(c) {label}: loss {loss_err}, grad norm {norm_err} against one rank")
+    return out
+
+
+def phase_sharded_moe(free_before):
+    """Phase 16: moonshot-v1-16b-a3b sharded over 4 ranks of one card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.serve import make_requests
+
+    t0 = time.perf_counter()
+    released = [_card_released(free_before)]
+    cuda = torch.device("cuda", 0)
+    arch = MOE["arch"]
+    cfg = get_config(arch)
+    rng = np.random.default_rng(SEED + 16)
+    prompts = np.stack([r.prompt for r in make_requests(cfg, MOE["prompts"], MOE["prompt_len"],
+                                                        1, SEED)])
+    loss_tokens = rng.integers(0, cfg.vocab_size, MOE["loss"])
+    train_tokens = rng.integers(0, cfg.vocab_size, MOE["train"])
+    ref = _moe_references(cfg, prompts, loss_tokens, train_tokens, cuda)
+    ref_s = time.perf_counter() - t0
+    released.append(_card_released(free_before))
+
+    def serve(key):
+        return dict(prefill=dict(tokens=prompts, s_max=MOE["s_max"], routing=True),
+                    decode=[dict(tokens=ref[key]["fed"])],
+                    loss=dict(tokens=loss_tokens, routing=True))
+
+    f32 = dict(MOE_SERVE, **MOE_F32)
+    cases = [dict(mesh=mesh, cfg=f32, **serve("f32")) for mesh in MOE["meshes"]]
+    cases.append(dict(mesh=(2, 2), cfg=MOE_F32, train=dict(tokens=train_tokens, accum=MOE["accum"],
+                                                           steps=1, host=("m",))))
+    cases.append(dict(mesh=(1, 4), cfg=dict(MOE_SERVE, n_layers=MOE["bf16_layers"]),
+                      **serve("bf16")))
+    opt = dict(n_layers=MOE["opt_layers"], capacity_factor=MOE_OPT_CF)
+    for dtypes in ({}, dict(param_dtype="float32", compute_dtype="float32")):
+        cases.append(dict(mesh=(1, 4), policy="opt", cfg=dict(MOE_SERVE, **opt, **dtypes),
+                          prefill=dict(tokens=prompts, s_max=prompts.shape[1], routing=True)))
+    cases.append(dict(mesh=(1, 4), policy="opt", cfg=opt,
+                      train=dict(tokens=train_tokens, accum=MOE["accum"], steps=1, host=())))
+    t1 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run", 4,
+                    dict(device="cuda:0", arch=arch, seed=SEED, cases=cases),
+                    timeout_s=MOE["limit"],
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t1
+    released.append(_card_released(free_before))
+
+    out = dict(arch=arch, prompts=list(prompts.shape), loss_shape=list(MOE["loss"]),
+               ticks=MOE["ticks"], s_max=MOE["s_max"], train_batch=list(MOE["train"]),
+               accum=MOE["accum"], bf16_layers=MOE["bf16_layers"],
+               opt_layers=MOE["opt_layers"], opt_capacity_factor=MOE_OPT_CF,
+               reference_s=ref_s, ranks_s=ranks_s, reckoning=_moe_reckoning(cfg),
+               reference_losses=dict(f32_2_layers=ref["f32"]["loss"], bf16=ref["bf16"]["loss"],
+                                     bf16_float32=ref["bf16"]["loss_f32"]))
+    fails = []
+    for i, case in enumerate(cases):
+        ranks = [r[i] for r in res]
+        c = cfg.with_(**case["cfg"])
+        policy = case.get("policy", "baseline")
+        if policy == "opt":
+            c = c.with_(moe_impl="a2a")
+        key = ("opt" if policy == "opt" else "bf16") if c.compute_dtype == "bfloat16" else (
+            "opt_f32" if policy == "opt" and "prefill" in case else "f32")
+        label = (f"{'train_' if 'train' in case else ''}{key}_{case['mesh'][0]}x"
+                 f"{case['mesh'][1]}_{policy}")
+        if "train" in case:
+            out[label] = _moe_train_checks(ranks, case, c, ref[key]["train"], label, fails)
+        else:
+            out[label] = _moe_serve_checks(ranks, case, c, ref, key, label, fails)
+    out["released_s"] = released
+    out["phase_s"] = time.perf_counter() - t0
+    log("sharded_moe", **out)
+    if fails:
+        raise AssertionError(f"phase 16: {fails}")
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -3977,9 +4437,13 @@ def main() -> int:
         phase_device()
         phase_sharded_ssm(torch.cuda.mem_get_info()[0])
         return 0
+    if sys.argv[1:] == ["--sharded-moe"]:
+        phase_device()
+        phase_sharded_moe(torch.cuda.mem_get_info()[0])
+        return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded "
-                         "| --sharded-ssm]")
+                         "| --sharded-ssm | --sharded-moe]")
     name, smi = phase_device()
     timing = phase_kernels()
     main_cuda = phase_main_path()
@@ -3995,6 +4459,7 @@ def main() -> int:
     sharded = phase_sharded(expert["free_bytes"])
     sharded_train = phase_sharded_train(expert["free_bytes"])
     sharded_ssm = phase_sharded_ssm(expert["free_bytes"])
+    sharded_moe = phase_sharded_moe(expert["free_bytes"])
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -4031,7 +4496,9 @@ def main() -> int:
                         launches_sharded_train_path=sharded_train[
                             "bf16_2x2_baseline"]["train_k2_launches"][0],
                         launches_sharded_train_eval=sharded_train[
-                            "bf16_2x2_baseline"]["k2_launches"][0]),
+                            "bf16_2x2_baseline"]["k2_launches"][0],
+                        launches_sharded_moe_serve_path=sharded_moe[
+                            "bf16_1x4_baseline"]["prefill"]["k2_launches"][0]),
         _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"],
                          launches_sharded_decode_path=sharded["bf16_1x4"]["decode"]["ticks"][
                              "k3_launches"][0]), {

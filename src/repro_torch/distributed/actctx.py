@@ -11,7 +11,7 @@ that resolves on a larger mesh raises.
 
 On a rank mesh (``launch/mesh.py::_make_mesh``) each rank holds its block
 of every tensor, and the layers move the blocks themselves.  Two readers
-act on the context there.  The dense and SSM models
+act on the context there.  The dense, MoE and SSM models
 (``models/model.py``) take their sharded path under the rules' layout of
 the residual stream
 (:func:`rank_layout`: the batch over the rules' ``batch`` axes, the
@@ -23,9 +23,12 @@ layers issues that path's collectives.  Under the decode rules
 sequence whole, and :func:`cache_layout` adds the decode cache's block of
 positions (``kv_seq`` over ``model``), or of the mamba states' channels
 (``d_inner`` over ``model``), to it.  The MoE block with
-``moe_impl="a2a"`` takes the expert-parallel dispatch, which cuts its
-input by the rules' ``batch`` and ``seq`` entries itself
-(``models/moe.py::a2a_layout``).  ``constrain`` on a rank mesh returns
+``moe_impl="a2a"`` takes the expert-parallel dispatch: in the sharded
+model on the residual stream's block, which ``models/moe.py::a2a_layout``
+gives it; in a ``replicated`` context (the expert-parallel block's own
+runs, ``launch/expert.py``, whose model is whole on every rank but its
+expert stacks) it cuts its whole input by the rules' ``batch`` and
+``seq`` entries itself.  ``constrain`` on a rank mesh returns
 ``x``: the block it is given already lies where its spec says.
 
 A train step on a rank mesh ends its backward pass with each leaf's
@@ -53,11 +56,17 @@ _STATE: list = []
 
 
 @contextmanager
-def activation_sharding(mesh, rules: Dict[str, Any], param_rules: Optional[Dict[str, Any]] = None):
+def activation_sharding(mesh, rules: Dict[str, Any], param_rules: Optional[Dict[str, Any]] = None,
+                        replicated: bool = False):
     """``rules``: the activation rules; ``param_rules``: where the
     parameters lie on a rank mesh (default ``PARAM_RULES``), the second
-    value of ``launch/dryrun.py::policy_rules``."""
-    _STATE.append((mesh, dict(rules), PARAM_RULES if param_rules is None else dict(param_rules)))
+    value of ``launch/dryrun.py::policy_rules``.  ``replicated``: the
+    model is whole on every rank but for the expert stacks that
+    ``models/moe.py::rank_shard`` cuts (the expert-parallel block's own
+    runs, ``launch/expert.py``), so no model takes :func:`rank_layout`'s
+    sharded path."""
+    _STATE.append((mesh, dict(rules), PARAM_RULES if param_rules is None else dict(param_rules),
+                   replicated))
     try:
         yield
     finally:
@@ -71,8 +80,9 @@ def active() -> Optional[Tuple[Any, Dict[str, Any]]]:
 
 def rank_params() -> Optional[Tuple[Any, Dict[str, Any]]]:
     """(mesh, parameter rules) of the active context where its mesh is a
-    rank mesh of more than one rank, else None."""
-    if not _STATE or not _on_ranks(_STATE[-1][0]):
+    rank mesh of more than one rank and the context is not
+    ``replicated``, else None."""
+    if not _STATE or not _on_ranks(_STATE[-1][0]) or _STATE[-1][3]:
         return None
     return _STATE[-1][0], _STATE[-1][2]
 
@@ -129,15 +139,16 @@ def constrain(
 
 @dataclass(frozen=True)
 class RankLayout:
-    """Where a dense or SSM model's tensors lie on the ranks of a rank mesh.
+    """Where a dense, MoE or SSM model's tensors lie on the ranks of a rank
+    mesh.
 
     The residual stream ``[B, S, d]`` is split along the batch over the
     mesh axes ``batch`` (``()``: every rank holds the whole batch) and,
     when ``seq_sharded``, along the sequence over ``model``: this rank
     holds rows ``b0:b0 + b_loc`` and positions ``s0:s0 + s_loc``.  Each
     parameter is this rank's block by ``param_rules``: under
-    ``PARAM_RULES`` heads, kv heads, ``d_ff`` and the vocabulary split
-    and ``d_inner`` over ``model`` where they divide it (the layers read
+    ``PARAM_RULES`` heads, kv heads, ``d_ff``, the vocabulary, the
+    experts and ``d_inner`` split over ``model`` where they divide it (the layers read
     which from the blocks' shapes), ``d_model`` over ``data`` (FSDP),
     gathered by
     :meth:`gather_params` just before use; under the small-DP policy's
@@ -153,7 +164,9 @@ class RankLayout:
     ``di0:di0 + di_loc`` over ``model``, the parameters' block (else
     every channel).  A ``stationary`` decode layout keeps the parameters'
     ``d_model`` blocks in place, where the batch does not split over
-    ``data`` (:meth:`d_block`, :meth:`contract`, :meth:`whole_d`)."""
+    ``data`` (:meth:`d_block`, :meth:`contract`, :meth:`whole_d`); an MoE
+    model's decode layout keeps its expert stacks' ``d_model`` blocks in
+    place (``experts_stationary``: :func:`keeps_expert_blocks`)."""
 
     mesh: Any
     batch: Tuple[str, ...]
@@ -166,6 +179,7 @@ class RankLayout:
     d_inner: int = 0
     di_sharded: bool = False
     stationary: bool = False
+    experts_stationary: bool = False
 
     @property
     def n_model(self) -> int:
@@ -309,16 +323,16 @@ def residual_axes(b: int, s: int, d: int, mesh, rules: Dict[str, Any]
 
 def rank_layout(b: int, s: int, d: int) -> Optional[RankLayout]:
     """The layout of a ``[b, s, d]`` residual stream under the active
-    context, where its mesh is a rank mesh of more than one rank (else
-    None), by :func:`residual_axes`: the baseline's and ``opt``'s (the
-    batch over ``data``, or ``("pod", "data")``, the sequence over
-    ``model``) and small-DP's (the batch over every axis it divides, the
-    sequence whole, every leaf whole).  Raises for the sequence over
-    another axis than ``model``, and for the batch over ``model`` while the
-    parameter rules split leaves over it."""
-    if not _STATE or not _on_ranks(_STATE[-1][0]):
+    context, where its mesh is a rank mesh of more than one rank and the
+    context is not ``replicated`` (else None), by :func:`residual_axes`:
+    the baseline's and ``opt``'s (the batch over ``data``, or ``("pod",
+    "data")``, the sequence over ``model``) and small-DP's (the batch over
+    every axis it divides, the sequence whole, every leaf whole).  Raises
+    for the sequence over another axis than ``model``, and for the batch
+    over ``model`` while the parameter rules split leaves over it."""
+    if not _STATE or not _on_ranks(_STATE[-1][0]) or _STATE[-1][3]:
         return None
-    mesh, rules, param_rules = _STATE[-1]
+    mesh, rules, param_rules, _ = _STATE[-1]
     batch, seq = residual_axes(b, s, d, mesh, rules)
     if seq not in (None, "model") or ("model" in batch and "model" in param_rules.values()):
         raise NotImplementedError(f"the sharded model with the batch over {batch}, the "
@@ -361,6 +375,18 @@ def keeps_d_blocks(lay: RankLayout, d_model: int) -> bool:
     GSPMD partitions the reference's decode cell."""
     return ("data" not in lay.batch and spec_for((d_model,), ("d_model",), lay.mesh,
                                                  lay.param_rules) == ("data",))
+
+
+def keeps_expert_blocks(mesh, param_rules: Dict[str, Any], d_model: int) -> bool:
+    """Whether an MoE decode tick under the gather dispatch should keep its
+    expert stacks' ``d_model`` blocks in place: the parameter rules split
+    ``d_model`` over a ``data`` axis of more than one rank.  A tick routes
+    a few rows into ``capacity`` rows an expert; gathering every expert's
+    weights over ``data`` each tick moves far more than the rows'
+    activations and the in-projections' partial products do, which is what
+    GSPMD moves for the reference's decode cell."""
+    return (mesh.shape.get("data", 1) > 1
+            and spec_for((d_model,), ("d_model",), mesh, param_rules) == ("data",))
 
 
 def replicated_axes(decl, mesh, param_rules: Dict[str, Any]) -> Tuple[str, ...]:

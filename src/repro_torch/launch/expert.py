@@ -147,7 +147,7 @@ def block(payload: dict) -> List[dict]:
                             generator=torch.Generator(device=device).manual_seed(case["seed"] + 1)
                             ).to(dtype)
         lay = moe.a2a_layout(cfg, mesh.shape, case["rules"], x.shape[0], x.shape[1])
-        with torch.no_grad(), actctx.activation_sharding(mesh, case["rules"]):
+        with torch.no_grad(), actctx.activation_sharding(mesh, case["rules"], replicated=True):
             with counting_collectives() as report, moe.recording() as rec:
                 y, aux = moe.moe_block(p, x, cfg)
             _sync(device)
@@ -201,7 +201,7 @@ def prefill(payload: dict) -> dict:
     model, params = _model(payload, mesh, cfg, device)
     tokens = _tokens(payload, cfg, device)
     s_max = payload.get("s_max", tokens.shape[1])
-    with torch.no_grad(), actctx.activation_sharding(mesh, payload["rules"]):
+    with torch.no_grad(), actctx.activation_sharding(mesh, payload["rules"], replicated=True):
         flash_attention.stats["launches"] = 0
         with counting_collectives() as report, moe.recording() as rec:
             logits, caches = model.prefill(params, {"tokens": tokens}, s_max)
@@ -257,7 +257,7 @@ def serve(payload: dict) -> dict:
     flash_attention.stats["launches"] = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    with actctx.activation_sharding(mesh, payload["rules"]):
+    with actctx.activation_sharding(mesh, payload["rules"], replicated=True):
         pending = list(reqs)
         while pending or engine.active:
             while pending and engine.has_capacity():

@@ -1,7 +1,15 @@
-"""Sharded runs of a dense or SSM model over a rank mesh: what each rank
-runs for a train step, ``Model.prefill``, decode ticks and ``Model.loss``
-under the baseline, ``opt`` and small-DP policies, and the collectives
-they issue, by formula.
+"""Sharded runs of a dense, MoE or SSM model over a rank mesh: what each
+rank runs for a train step, ``Model.prefill``, decode ticks and
+``Model.loss`` under the baseline, ``opt`` and small-DP policies, and the
+collectives they issue, by formula.  An MoE layer issues, under the
+baseline's gather dispatch, the sequence's gather (``moe/in``), the
+router's (``moe/router``), the balance statistics' sum and the expert
+counts' gather over the batch's ranks (``moe/aux``, ``moe/counts``) and
+the per-choice outputs' reduce-scatter (``moe/out``), a decode tick the
+rows' gather and the in-projections' float32 sum over ``data``
+(``moe/rows``, ``moe/experts``) and the output block's gather
+(``moe/data``); under ``opt`` the a2a body's (``moe_a2a/*``), each with
+its transpose in a train step.
 
 :func:`run` is a target of ``distributed/ranks.py::run_ranks``: every rank
 calls it with the same payload, and for each case of ``payload["cases"]``
@@ -14,10 +22,12 @@ of the parameters by the parameter rules and runs, under
 ``activation_sharding(mesh, rules, param_rules)``, the steps the case
 names by its entries, in this order: ``"train": {"tokens": [B, S],
 "steps": n, "accum": a, "host": ...}``, ``"prefill": {"tokens": [B, S],
-"s_max": ... (default S), "reps": ...}``, ``"decode": [entry, ...]``
-(:func:`_decode`) and ``"loss": {"tokens": ..., "loss_mask": ...
-(optional), "cfg": ... (optional), "reps": ...}`` (numpy, the whole
-batch), the later ones on the parameters the train steps left.  The
+"s_max": ... (default S), "reps": ..., "routing": ...}``, ``"decode":
+[entry, ...]`` (:func:`_decode`) and ``"loss": {"tokens": ...,
+"loss_mask": ... (optional), "cfg": ... (optional), "reps": ...,
+"routing": ...}`` (numpy, the whole batch), the later ones on the
+parameters the train steps left (``routing``: return the MoE layers'
+routing, ``models/moe.py::recording``).  The
 decode entries run under ``policy_rules``' rules for a decode cell
 (``ACT_RULES_DECODE``), the parameters as the case holds them.
 Parameters are either given whole (``params``: numpy, the reference's
@@ -35,6 +45,7 @@ logits together, :func:`assemble_blocks` those of a decode tick.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import List
@@ -48,8 +59,9 @@ from ..distributed.collectives import all_gather, staging
 from ..distributed.sharding import PARAM_RULES, decode_rules, rank_shard, spec_for
 from ..models.attention import rank_kv_heads
 from ..models.model import Model
+from ..models import moe
 from ..models.params import dtype_of, flatten, param_axes
-from ..models.transformer import _one_layer_defs, _slot_kind
+from ..models.transformer import _one_layer_defs, _slot_kind, _without, moe_kept_leaves
 from .expert import Op, _host, _ops, _route, _sync
 from .hlo_analysis import counting_collectives
 from .mesh import Mesh, _make_mesh
@@ -108,12 +120,12 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
         return embed + layer * cfg.n_layers + head
     embed, layer, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s,
                                         param_bytes, act_bytes, "loss")
-    last = ("mlp/out", "mamba/out")      # the layer's output, after its last saved tensor
+    last = ("mlp/out", "mamba/out", "moe/out")    # the layer's output, after its last saved tensor
     again = [(k, n, g, f"{path}/bwd") for k, n, g, path in layer
              if path not in last and cfg.remat]
     rest = [op for op in layer if op[3] not in last]
     layer_bwd = ([_transpose(op) for op in layer if op[3] in last] + again
-                 + [_transpose(op) for op in reversed(rest)])
+                 + [_transpose(op) for op in reversed(_with_gradient(rest))])
     backward = ([_transpose(op) for op in reversed(head)] + layer_bwd * cfg.n_layers
                 + [_transpose(op) for op in reversed(embed)])
     ops = (embed + layer * cfg.n_layers + head + backward) * accum
@@ -130,6 +142,90 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     if any(axes != every for _, axes in leaves):
         ops.append(("all-reduce", 4 * len(leaves), math.prod(mesh_shape.values()), "grad_norm"))
     return ops
+
+
+def _with_gradient(ops: List[Op]) -> List[Op]:
+    """The ops among a layer's forward ``ops`` whose results carry a
+    gradient: not the expert counts (``moe/counts``), nor the a2a body's
+    top-1 counts and token count (its second and third ``moe_a2a/aux``
+    sums; the first sums the probabilities)."""
+    out, aux = [], 0
+    for op in ops:
+        aux += op[3] == "moe_a2a/aux"
+        if op[3] != "moe/counts" and not (op[3] == "moe_a2a/aux" and aux > 1):
+            out.append(op)
+    return out
+
+
+def _moe_ops(cfg: ModelConfig, mesh, rules, param_rules, b: int, s: int, seq: bool,
+             batch, param_bytes: int, act_bytes: int, keep_d: bool = False) -> List[Op]:
+    """An MoE layer's ops after its attention's: the a2a body's where it
+    applies (``launch/expert.py::a2a_collectives`` without the
+    reassembly; where the a2a layout is not the stream's, the stream's
+    blocks gathered whole first and the reassembly kept,
+    ``moe._moe_block_a2a_ranks``), else the sharded gather dispatch's
+    (``moe._moe_block_ranks``): the sequence gathered over ``model``, the
+    router's columns gathered where the experts split, the balance
+    statistics' float32 sum and the per-expert counts' gather (int64) over
+    the batch's ranks, and the per-choice outputs reduce-scattered (summed
+    where the sequence is whole) where the experts or ``d_ff`` split.  ``keep_d`` (a decode
+    tick's ``experts_stationary``): the rows gathered over ``data`` first
+    (the sums and counts then over the other batch axes), the
+    in-projections' float32 partial products summed over ``data``, the
+    per-choice outputs on the rank's ``d_model`` block, which is gathered
+    over ``data`` last."""
+    from .expert import a2a_collectives
+
+    n_model, n_data = mesh.shape.get("model", 1), mesh.shape.get("data", 1)
+    b_loc = b // math.prod(mesh.shape[a] for a in batch)
+    if moe.a2a_on_ranks(cfg, mesh):
+        ops = a2a_collectives(cfg, dict(mesh.shape), rules, b, s, param_bytes, act_bytes)
+        al = moe.a2a_layout(cfg, dict(mesh.shape), rules, b, s)
+        if (al.dp, al.seq_sharded) == (tuple(batch), seq):
+            return [op for op in ops if op[3] != "moe_a2a/reassemble"]
+        ins = [("all-gather", b * s // (n_model if seq else 1) * cfg.d_model * act_bytes,
+                b // b_loc, "moe_a2a/in")] if b != b_loc else []
+        if seq:
+            ins.append(("all-gather", b * s * cfg.d_model * act_bytes, n_model, "moe_a2a/in"))
+        return ins + ops
+    d, d_out, e, k, f = cfg.d_model, cfg.d_model, cfg.n_experts, cfg.top_k, cfg.d_ff
+    experts = _split(param_rules, mesh, "experts", e)
+    ffn = not experts and _split(param_rules, mesh, "d_ff", f)
+    ops = [("all-gather", b_loc * s * d * act_bytes, n_model, "moe/in")] if seq else []
+    if keep_d:
+        d_out //= n_data
+        if "data" in batch:
+            b_loc *= n_data
+            ops.append(("all-gather", b_loc * s * d * act_bytes, n_data, "moe/rows"))
+            batch = tuple(a for a in batch if a != "data")
+    n_batch = math.prod(mesh.shape[a] for a in batch)
+    if experts:
+        ops.append(("all-gather", d * e * param_bytes, n_model, "moe/router"))
+    if n_batch > 1:
+        ops += [("all-reduce", (2 * e + 1) * 4, n_batch, "moe/aux"),
+                ("all-gather", n_batch * e * 8, n_batch, "moe/counts")]
+    if keep_d:
+        e_loc, f_loc = e // (n_model if experts else 1), f // (n_model if ffn else 1)
+        width = f_loc * (2 if cfg.mlp_kind == "swiglu" else 1)
+        ops.append(("all-reduce", e_loc * moe.capacity(cfg, b * s) * width * 4, n_data,
+                    "moe/experts"))
+    if experts or ffn:
+        ops.append(("reduce-scatter", b_loc * s // n_model * k * d_out * act_bytes, n_model,
+                    "moe/out") if seq else
+                   ("all-reduce", b_loc * s * k * d_out * act_bytes, n_model, "moe/out"))
+    if keep_d:
+        ops.append(("all-gather", b_loc * s * d * act_bytes, n_data, "moe/data"))
+    return ops
+
+
+def _layer_defs(cfg: ModelConfig, mesh, keep_d: bool = False) -> dict:
+    """The leaves a layer's gather over ``data`` takes
+    (``transformer.gather_layer``): all but the ``moe`` leaves it leaves
+    in place (``transformer.moe_kept_leaves``; ``keep_d``: a decode
+    tick's ``experts_stationary``)."""
+    defs = _one_layer_defs(cfg, *_slot_kind(cfg, 0))
+    kept = moe_kept_leaves(cfg, mesh, keep_d)
+    return _without(defs, kept) if kept else defs
 
 
 def _ways(p, mesh, param_rules) -> int:
@@ -239,7 +335,9 @@ def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s
     embed = (gather_params({"embed": defs["embed"]}, "embed")
              + to_stream("vocab", cfg.vocab_size, "embed")
              + (whole_d("embed/data") if keep else []))
-    layer = gather_params(_one_layer_defs(cfg, mixer, ffn), "layer")
+    keep_d = (ffn == "moe" and not moe.a2a_on_ranks(cfg, mesh)
+              and actctx.keeps_expert_blocks(mesh, param_rules, cfg.d_model))
+    layer = gather_params(_layer_defs(cfg, mesh, keep_d), "layer")
     if keep:
         din = cfg.d_inner // (n_model if _split(param_rules, mesh, "d_inner", cfg.d_inner) else 1)
         layer.append(("all-reduce", b_loc * 2 * din * 4, mesh.shape["data"], "mamba/in"))
@@ -263,6 +361,9 @@ def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s
         layer += to_stream("heads", nq, "attn/out")
     if ffn == "mlp":
         layer += to_stream("d_ff", cfg.d_ff, "mlp/out")
+    elif ffn == "moe":
+        layer += _moe_ops(cfg, mesh, rules, param_rules, b, 1, False, batch, param_bytes,
+                          act_bytes, keep_d)
     v_loc = cfg.vocab_size // (n_model if _split(param_rules, mesh, "vocab", cfg.vocab_size)
                                else 1)
     head = ([("all-reduce", b_loc * v_loc * 4, mesh.shape["data"], "head")] if keep
@@ -303,7 +404,7 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
 
     embed = (gather_params({"embed": defs["embed"]}, "embed")
              + to_stream("vocab", cfg.vocab_size, "embed"))
-    layer = gather_params(_one_layer_defs(cfg, mixer, ffn), "layer")
+    layer = gather_params(_layer_defs(cfg, mesh), "layer")
     if mixer == "mamba":
         layer += (gather_seq(stream, "mamba/in") + _dtbc(cfg, mesh, param_rules, b_loc * s)
                   + to_stream("d_inner", cfg.d_inner, "mamba/out", 4))
@@ -311,6 +412,9 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
         layer += gather_seq(stream, "attn/in") + to_stream("heads", cfg.n_heads, "attn/out")
     if ffn == "mlp":
         layer += gather_seq(stream, "mlp/in") + to_stream("d_ff", cfg.d_ff, "mlp/out")
+    elif ffn == "moe":
+        layer += _moe_ops(cfg, mesh, rules, param_rules, b, s, seq, batch, param_bytes,
+                          act_bytes)
     head_params = gather_params(_head_defs(cfg, defs), "head")
     if step == "prefill":
         last = gather_seq(b_loc * n_model * d * act_bytes, "prefill/last")
@@ -414,13 +518,14 @@ def _prefill(model: Model, params, entry: dict, device, carry: dict):
     call = lambda: model.prefill(params, {"tokens": tokens}, s_max)  # noqa: E731
     _launches(reset=True)
     before = dict(staging)
-    with counting_collectives() as report:
+    with counting_collectives() as report, _recording(entry) as records:
         (logits, caches), ms = _timed(call, device)
     counts = _launches()
     lay = actctx.rank_layout(*tokens.shape, model.cfg.d_model)
     out = dict(logits=logits.cpu(), rows=(lay.b0, lay.b0 + lay.b_loc),
                cols=_cols(lay, logits.shape[-1], model.cfg), caches=_host(caches),
-               ops=_ops(report), staging_s=_staging_since(before), **counts)
+               ops=_ops(report), staging_s=_staging_since(before), **counts,
+               **_routing(records))
     carry.update(caches=caches, pos=tokens.shape[1], s_max=s_max)
     del logits, caches
     ms = [ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]
@@ -560,6 +665,18 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
     return out, params
 
 
+def _recording(entry: dict):
+    """``moe.recording()`` where the entry asks for its ``routing``, else
+    a context that records nothing."""
+    return moe.recording() if entry.get("routing") else contextlib.nullcontext()
+
+
+def _routing(records) -> dict:
+    """``{"routing": [per MoE call: this rank's expert ids and kept
+    entries (moe.routing)]}`` of a recorded call, else nothing."""
+    return {} if records is None else {"routing": [moe.routing(r) for r in records]}
+
+
 def _launches(reset: bool = False) -> dict:
     """K2's and K4's launches (``k2_launches``, ``k4_launches``) since the
     last reset; ``reset`` sets both counts to 0 first."""
@@ -580,11 +697,12 @@ def _loss(model: Model, params, entry: dict, device, carry: dict):
     call = lambda: model.loss(params, batch)  # noqa: E731
     _launches(reset=True)
     before = dict(staging)
-    with counting_collectives() as report:
+    with counting_collectives() as report, _recording(entry) as records:
         (total, metrics), ms = _timed(call, device)
     counts = _launches()
     return dict(loss=float(total), ce=float(metrics["ce"]), aux=float(metrics["aux"]),
                 ops=_ops(report), staging_s=_staging_since(before), **counts,
+                **_routing(records),
                 ms=[ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]), params
 
 
@@ -614,8 +732,10 @@ def run(payload: dict) -> List[dict]:
     all three); the prefill's ``logits`` (this rank's block ``[B / batch
     ranks, V / model ranks]``, at ``rows`` and ``cols`` of the whole),
     ``caches`` (host; this rank's blocks in the decode layout), ``ops``,
-    ``k2_launches``, ``k4_launches``; the decode entries' results
-    (:func:`_decode`); the loss's ``loss``, ``ce``, ``aux``, ``ops``,
+    ``k2_launches``, ``k4_launches``, and where asked ``routing`` (per MoE
+    call, this rank's expert ids and kept entries, ``moe.routing``); the
+    decode entries' results (:func:`_decode`); the loss's ``loss``,
+    ``ce``, ``aux``, ``ops``, ``routing``,
     ``k2_launches``, ``k4_launches`` (an entry's ``cfg`` overrides, e.g.
     ``attn_impl`` or ``ssm_impl``); the prefill's, the decode
     entries' and the loss's ``staging_s`` (``collectives.staging`` over

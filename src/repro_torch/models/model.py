@@ -15,20 +15,23 @@ Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub),
 keeps a length-1 sequence axis, ``[B, 1, V]``).
 
 Under an ``activation_sharding`` context whose mesh is a rank mesh of more
-than one rank, a dense or SSM model's ``loss`` and ``prefill`` run sharded
-(``distributed/actctx.py::rank_layout``), as the reference's partitioned
-cell under the baseline, ``opt`` and small-DP policies: ``params`` are
+than one rank, a dense, MoE or SSM model's ``loss`` and ``prefill`` run
+sharded (``distributed/actctx.py::rank_layout``), as the reference's
+partitioned cell under the baseline, ``opt`` and small-DP policies: ``params`` are
 this rank's blocks by the context's parameter rules
 (``Model.init(shard=sharding.rank_shard(mesh, param_rules))``,
 ``convert.shard_params``), ``batch`` the whole batch on every rank.  The
 embedding is a vocab-parallel lookup (rows outside this rank's block of
 the vocabulary give 0), reduce-scattered into the residual stream's block
 (the reference's ``constrain`` at ``_assemble_input``); the layers run on
-this rank's heads and ``d_ff`` columns, or its ``d_inner`` channels; the
-head is vocab-parallel.  A tied head is the embedding's vocab-parallel
-block, gathered over ``data`` for the head as for the lookup: its logits
-are ``x @ block.T``, this rank's block of the vocabulary, and under
-autograd the leaf's gradient sums both uses.
+this rank's heads and ``d_ff`` columns, or its ``d_inner`` channels, or
+an MoE layer on its experts (``models/moe.py``: the global gather
+dispatch under the baseline, the a2a body on the stream's block where
+``moe_impl="a2a"`` applies); the head is vocab-parallel.  A tied head
+is the embedding's vocab-parallel block, gathered over ``data`` for the
+head as for the lookup: its logits are ``x @ block.T``, this rank's
+block of the vocabulary, and under autograd the leaf's gradient sums
+both uses.
 ``prefill`` returns this rank's block of the last position's logits,
 ``[B / batch ranks, V / model ranks]`` (the reference's output spec
 ``(batch, vocab)``), and this rank's blocks of the caches in the layout
@@ -41,7 +44,9 @@ the axis), every kv head; an SSM's mamba states its rows and block of
 1]``, ``caches`` this rank's blocks in that layout (``s_max`` the
 attention caches' whole length; an SSM's caches do not grow), the softmax
 across the ranks' blocks of positions (``attention.decode_attention``) or
-the mamba update on the rank's channels (``ssm.mamba_decode``); it
+the mamba update on the rank's channels (``ssm.mamba_decode``), an MoE
+layer with its expert stacks' ``d_model`` blocks in place under the
+gather dispatch (``RankLayout.experts_stationary``); it
 returns this rank's ``[B / batch ranks, V / model ranks]`` logits and
 writes its blocks in place.  An SSM's tick whose batch does not split
 over ``data`` keeps every ``d_model`` block in place
@@ -50,13 +55,16 @@ the head's float32 partial products over ``d_model`` summed over it.
 ``loss`` takes a vocab-parallel cross-entropy — each rank's log-sum-exp
 and gold logit over its block of the vocabulary, gathered over ``model``
 and combined — and returns the mean over every position of the global
-batch, the same on every rank.  Under autograd the loss is the root of
-the backward pass through the collectives' transposes
-(``distributed/collectives.py``): each leaf's gradient comes back as this
-rank's share, which ``launch/steps.py::make_train_step`` sums over the
-axes the leaf is held alike along.  Every family but the dense and SSM
-ones raises under autograd on a rank mesh (its sharded train step is not
-ported), and runs whole on every rank without it.
+batch, the same on every rank, plus the MoE balance term over the global
+token population, also the same on every rank.  Under autograd the loss
+is the root of the backward pass through the collectives' transposes
+(``distributed/collectives.py``): the cross-entropy and the balance term
+each seed their cotangent as shares, and each leaf's gradient comes back
+as this rank's share, which ``launch/steps.py::make_train_step`` sums
+over the axes the leaf is held alike along.  The hybrid,
+encoder-decoder and VLM families raise under autograd on a rank mesh
+(their sharded train step is not ported), and run whole on every rank
+without it.
 """
 from __future__ import annotations
 
@@ -129,11 +137,11 @@ class Model:
         return logits.float()
 
     def _layout(self, batch: Dict[str, torch.Tensor]):
-        """The rank layout of this batch under the active context (a dense
-        or SSM model on a rank mesh), or None."""
+        """The rank layout of this batch under the active context (a dense,
+        MoE or SSM model on a rank mesh), or None."""
         from ..distributed.actctx import rank_layout, rank_params
 
-        if self.cfg.family not in ("dense", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "ssm"):
             if torch.is_grad_enabled() and rank_params() is not None:
                 raise NotImplementedError(f"the {self.cfg.family} family's sharded train step")
             return None
@@ -142,9 +150,18 @@ class Model:
     def cache_layout(self, lay, s_max: int, rules):
         """``lay`` with this rank's block of the decode caches under
         ``rules`` (``actctx.cache_layout`` of an attention cache of
-        ``s_max`` positions, or of an SSM's state)."""
-        from ..distributed.actctx import cache_layout, keeps_d_blocks
+        ``s_max`` positions, or of an SSM's state); an MoE model's layout
+        keeps its expert stacks' ``d_model`` blocks in place under the
+        gather dispatch where they split over ``data``
+        (``actctx.keeps_expert_blocks``)."""
+        from ..distributed.actctx import cache_layout, keeps_d_blocks, keeps_expert_blocks
+        from .moe import a2a_on_ranks
 
+        if self.cfg.family == "moe":
+            lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], rules)
+            keep = (not a2a_on_ranks(self.cfg, lay.mesh)
+                    and keeps_expert_blocks(lay.mesh, lay.param_rules, self.cfg.d_model))
+            return replace(lay, experts_stationary=keep)
         if self.cfg.family != "ssm":
             return cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], rules)
         lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["h"], rules)
@@ -207,10 +224,10 @@ class Model:
 
                 sums = psum(sums, lay.mesh, lay.batch, "loss/mean")
             ce = sums[0] / torch.clamp(sums[1], min=1.0)
-            if lay is not None:     # every rank holds it: each seeds a share
+            if lay is not None:     # every rank holds both: each seeds a share
                 from ..distributed.collectives import seed_shares
 
-                ce = seed_shares(ce, lay.mesh)
+                ce, aux = seed_shares(ce, lay.mesh), seed_shares(aux, lay.mesh)
         total = ce + cfg.aux_loss_weight * aux
         return total, {"ce": ce, "aux": aux}
 

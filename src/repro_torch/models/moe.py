@@ -28,6 +28,24 @@ add, as the reference's sorted scatter-add does.  The combine is a loop
 over the k choices, so it has no atomics and gives the same bits on every
 run.
 
+On a rank mesh the MoE model hands :func:`moe_block` its ``RankLayout``
+(``distributed/actctx.py``; ``x`` is this rank's block of the residual
+stream, ``p`` its blocks of the layer's leaves), and the block is
+partitioned as the reference's cell is.  Under the gather dispatch (the
+baseline policy, and ``"a2a"`` where the experts do not divide ``model``)
+it computes the reference's global dispatch exactly
+(:func:`_moe_block_ranks`): the sequence gathered over ``model``
+(``moe/in``), the router's expert columns gathered (``moe/router``), every
+token of the rank's rows routed alike on every ``model`` rank, the balance
+statistics summed over the batch's ranks (``moe/aux``), each entry's place
+in its expert at the global capacity from the per-expert counts of the
+rows before this rank's (``moe/counts``), the rank's experts run on its
+kept entries, and the weighted per-choice outputs reduce-scattered back to
+the stream's block (``moe/out``) before the combine.  Under ``"a2a"``
+where it applies (the ``opt`` policy) the expert-parallel body runs on the
+stream's block itself (:func:`_moe_block_a2a_ranks`), with no slicing and
+no reassembly.
+
 ``recording()`` lets a caller see each call's routing (router
 probabilities, expert ids, kept entries) without changing what the layer
 computes: the tests hold it against the reference's, and the card's smoke
@@ -51,15 +69,27 @@ _records: Optional[List[dict]] = None
 @contextlib.contextmanager
 def recording() -> Iterator[List[dict]]:
     """While active, every ``moe_block`` call appends ``{"probs": [T,E]
-    float32, "gate_idx": [T,k], "keep": [T·k] (dispatch order)}``, detached,
-    to the list it yields, in call order (a checkpointed pass appends again
-    when its backward recomputes the layer)."""
+    float32, "gate_idx": [T,k], "keep": [T·k] (dispatch order), "order":
+    [T·k] (the flat (token, choice) entry at each place of the dispatch
+    order)}``, detached, to the list it yields, in call order (a
+    checkpointed pass appends again when its backward recomputes the
+    layer).  On a rank mesh the tokens are the rank's: its rows over the
+    whole sequence under the gather dispatch, its block of the stream
+    under the a2a dispatch."""
     global _records
     saved, _records = _records, []
     try:
         yield _records
     finally:
         _records = saved
+
+
+def routing(record: dict) -> dict:
+    """A :func:`recording` record's expert ids and kept entries, both
+    ``[T, k]`` in (token, choice) order, on the host."""
+    kept = torch.zeros_like(record["keep"])
+    kept[record["order"]] = record["keep"]
+    return dict(gate_idx=record["gate_idx"].cpu(), kept=kept.view(record["gate_idx"].shape).cpu())
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -114,11 +144,18 @@ def dispatch(gate_idx: torch.Tensor, n_experts: int, cap: int):
     return order, keep, dest
 
 
-def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, lay=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] → (y [B,S,d], aux_loss float32 scalar).  Dispatch by
     ``cfg.moe_impl``: "gather", or "a2a" — the expert-parallel dispatch
     under a rank mesh's ``activation_sharding`` context where it applies,
-    the gather dispatch elsewhere (see the module docstring)."""
+    the gather dispatch elsewhere (see the module docstring).  ``lay``: the
+    MoE model's layer on a rank mesh, ``x`` this rank's block of the
+    residual stream and ``p`` its blocks (module docstring)."""
+    if lay is not None:
+        if a2a_on_ranks(cfg, lay.mesh):
+            return _moe_block_a2a_ranks(p, x, cfg, lay)
+        return _moe_block_ranks(p, x, cfg, lay)
     if cfg.moe_impl == "a2a":
         from ..distributed import actctx
 
@@ -128,12 +165,19 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     return _moe_block_gather(p, x, cfg)
 
 
+def a2a_on_ranks(cfg: ModelConfig, mesh) -> bool:
+    """Whether an MoE layer of ``cfg`` on a rank mesh of ``mesh``'s shape
+    takes the a2a dispatch (whose body gathers its own leaves over
+    ``data``): ``moe_impl="a2a"`` and more than one rank along ``model``,
+    dividing the experts."""
+    n_model = mesh.shape.get("model", 1)
+    return cfg.moe_impl == "a2a" and n_model > 1 and cfg.n_experts % n_model == 0
+
+
 def _a2a_applicable(cfg: ModelConfig, mesh) -> bool:
     """The reference's test (a ``model`` axis that divides the experts),
     on a rank mesh with more than one rank along ``model``."""
-    n_model = mesh.shape.get("model", 1)
-    return (getattr(mesh, "is_rank_mesh", False) and n_model > 1
-            and cfg.n_experts % n_model == 0)
+    return getattr(mesh, "is_rank_mesh", False) and a2a_on_ranks(cfg, mesh)
 
 
 def _experts(w: dict, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -166,7 +210,7 @@ def _moe_block_gather(p: dict, x: torch.Tensor, cfg: ModelConfig
     cap = capacity(cfg, t)
     order, keep, dest = dispatch(gate_idx, e, cap)
     if _records is not None:
-        _records.append(dict(probs=probs.detach(), gate_idx=gate_idx, keep=keep))
+        _records.append(dict(probs=probs.detach(), gate_idx=gate_idx, keep=keep, order=order))
     tok_idx = order // k                                  # source token
     buf = xt.new_zeros((e * cap + 1, d))
     buf[dest] = xt[tok_idx]     # rows distinct but the discarded overflow row
@@ -176,6 +220,123 @@ def _moe_block_gather(p: dict, x: torch.Tensor, cfg: ModelConfig
     ys = torch.where(keep[:, None], out_flat[dest.clamp(0, e * cap - 1)], 0.0)
     w = gate_vals.reshape(-1)[order].to(ys.dtype)
     return combine(ys * w[:, None], order, gate_idx).view(b, s, d), aux
+
+
+def _moe_block_ranks(p: dict, x: torch.Tensor, cfg: ModelConfig, lay
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gather dispatch of the whole batch, as GSPMD partitions it, on
+    this rank's block ``x`` of the residual stream (module docstring).
+
+    Every ``model`` rank routes its rows over the whole sequence with the
+    whole router, so its probabilities, gate values and expert ids are one
+    rank's bits.  The reference sorts all ``B·S·k`` entries stably by
+    expert, token-major, at the capacity of the global token count: an
+    entry's place in its expert is its place among this rank's rows plus
+    that expert's entries on the rows before them, the counts of the batch
+    ranks of lower coordinate (one all-gather of ``[E]`` integers).  The
+    rank runs its ``E / model`` experts (every expert, on its ``d_ff``
+    columns, where the experts do not divide ``model``) on the kept
+    entries it owns, and weighs each output by its gate value.  The
+    per-choice outputs ``[b, S, k, d]``, each token's choices in ascending
+    expert id and zero where another rank owns the expert, are
+    reduce-scattered over ``model`` along the sequence (summed where the
+    sequence is whole): one term of each sum is not zero, so the sum is
+    exact where the experts split.  The combine then adds each position's
+    k choices in that order, as the reference's scatter-add does.  Nothing
+    after that collective is saved for the backward pass, so a
+    checkpoint's recomputation stops before it.  The balance term is over
+    the global token population (the statistics summed over the batch's
+    ranks).
+
+    A decode layout with ``experts_stationary`` keeps the expert stacks'
+    ``d_model`` blocks in place: the rows are gathered over ``data``
+    (``moe/rows``) and routed alike on every rank of it, the
+    in-projections' float32 partial products summed over ``data``
+    (``moe/experts``) and rounded once, the out-projection and the combine
+    run on the rank's ``d_model`` block, which is gathered over ``data``
+    (``moe/data``) before the rank keeps its rows."""
+    from ..distributed.collectives import all_gather, psum
+
+    mesh, e, k = lay.mesh, cfg.n_experts, cfg.top_k
+    keep_d = lay.experts_stationary
+    xs = lay.gather_seq(x, "moe/in")
+    batch, b0, b_loc = lay.batch, lay.b0, lay.b_loc
+    if keep_d and "data" in batch:      # the data ranks' rows, routed alike on each
+        xs = all_gather(xs, mesh, "data", 0, "moe/rows")
+        b0 -= mesh.coords["data"] * b_loc
+        b_loc *= mesh.shape["data"]
+        batch = tuple(a for a in batch if a != "data")
+    b, s, d = xs.shape
+    t = b * s
+    xt = xs.reshape(t, d)
+    e_loc = p["router"].shape[-1]
+    router = p["router"] if e_loc == e else all_gather(p["router"], mesh, "model", 1,
+                                                       "moe/router")
+    probs, gate_vals, gate_idx = route({"router": router}, xt, cfg)
+
+    top1 = gate_idx[:, 0]
+    ones = torch.ones_like(top1, dtype=probs.dtype)
+    sums = torch.cat([probs.sum(dim=0), probs.new_zeros(e).scatter_add_(0, top1, ones),
+                      probs.new_full((1,), float(t))])
+    sums = psum(sums, mesh, batch, "moe/aux")
+    aux = e * torch.sum((sums[:e] / sums[-1]) * (sums[e:2 * e] / sums[-1]))
+
+    flat_e = gate_idx.reshape(-1)
+    counts = flat_e.new_zeros(e).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    rows = all_gather(counts, mesh, batch, 0, "moe/counts").view(-1, e)
+    before = rows[:b0 // b_loc].sum(dim=0)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=xt.device) - starts[sorted_e] + before[sorted_e]
+    cap = capacity(cfg, lay.b * lay.s)
+    keep = pos < cap
+    if _records is not None:
+        _records.append(dict(probs=probs.detach(), gate_idx=gate_idx, keep=keep, order=order))
+    e0 = lay.mi * e_loc if e_loc != e else 0
+    mine = keep & (sorted_e >= e0) & (sorted_e < e0 + e_loc)
+    dest = torch.where(mine, (sorted_e - e0) * cap + pos, torch.full_like(pos, e_loc * cap))
+    src = lay.d_block(xt) if keep_d else xt
+    buf = src.new_zeros((e_loc * cap + 1, src.shape[1]))
+    buf[dest] = src[order // k]
+    buf = buf[: e_loc * cap].view(e_loc, cap, -1)
+    out = _experts_stationary(p, buf, cfg, lay) if keep_d else _experts(p, buf, cfg)
+    out = out.reshape(e_loc * cap, -1)
+    ys = torch.where(mine[:, None], out[dest.clamp(0, e_loc * cap - 1)], 0.0)
+    upd = ys * gate_vals.reshape(-1)[order].to(ys.dtype)[:, None]
+
+    # each token's k entries in ascending expert id: their places in the
+    # dispatch order, sorted
+    place = torch.empty_like(order)
+    place[order] = torch.arange(t * k, device=xt.device)
+    choices = upd[place.view(t, k).sort(dim=1).values].view(b, s, k, -1)
+    f_loc = p["w_down" if cfg.mlp_kind == "swiglu" else "w_out"].shape[-2]
+    choices = lay.scatter_seq(choices, e_loc != e or f_loc != cfg.d_ff, "moe/out")
+    y = choices.new_zeros(choices.shape[:2] + choices.shape[3:])
+    for j in range(k):
+        y = y + choices[:, :, j]
+    if keep_d:
+        y = lay.whole_d(y, "moe/data")[lay.b0 - b0:lay.b0 - b0 + lay.b_loc]
+    return y, aux
+
+
+def _experts_stationary(w: dict, buf: torch.Tensor, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`_experts` over ``buf [E, C, d / data]``, this rank's block of
+    ``d_model`` of every row, with the expert stacks' ``d_model`` blocks
+    in place: the in-projections' float32 partial products summed over
+    ``data`` in one all-reduce and rounded once, where one rank's product
+    rounds once; the out-projection gives this rank's block of the
+    output."""
+    from ..distributed.collectives import psum
+
+    names = ("w_gate", "w_up") if cfg.mlp_kind == "swiglu" else ("w_in",)
+    part = torch.cat([torch.bmm(buf.float(), w[n].float()) for n in names], dim=-1)
+    h = psum(part, lay.mesh, "data", "moe/experts").to(buf.dtype)
+    if cfg.mlp_kind == "swiglu":
+        g, u = h.chunk(2, dim=-1)
+        return torch.bmm(F.silu(g.float()).to(buf.dtype) * u, w["w_down"])
+    h = F.gelu(h.float(), approximate="tanh").to(buf.dtype)
+    return torch.bmm(h, w["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +403,7 @@ def rank_shard(cfg: ModelConfig, mesh):
     """For ``init_params(shard=...)``: each leaf under a ``moe`` key → this
     rank's slices, where the a2a dispatch applies on ``mesh`` (else None:
     every rank holds every parameter)."""
-    if cfg.moe_impl != "a2a" or not _a2a_applicable(cfg, mesh):
+    if not _a2a_applicable(cfg, mesh):
         return None
     shape, coords = mesh.shape, mesh.coords
 
@@ -286,6 +447,37 @@ def _moe_block_a2a(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh, rules
     return y, aux
 
 
+def _moe_block_a2a_ranks(p: dict, x: torch.Tensor, cfg: ModelConfig, lay
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The a2a dispatch inside the sharded MoE model: the body runs on
+    ``x``, this rank's block of the residual stream, which is the block
+    ``a2a_layout``'s ``x_spec`` gives it (the batch over the rules' batch
+    axes, the sequence over ``model`` where the rules put it there), and
+    returns the output's block, with no slicing and no reassembly.  ``p``
+    holds the layer's ``moe`` leaves as the parameter rules place them,
+    which the layer leaves ungathered: this rank's blocks by
+    :data:`A2A_PARAM_SPECS` under ``PARAM_RULES``, or the whole leaves
+    under small-DP's rules, of which the rank takes its blocks with no
+    collective (as ``shard_map`` takes its operands' blocks).  Where the
+    two layouts differ (small-DP's first batch candidate does not divide
+    the batch, so ``x_spec`` leaves it whole while the stream takes a
+    later candidate), the stream's blocks are gathered whole
+    (``moe_a2a/in``), the dispatch cuts and reassembles them as
+    :func:`_moe_block_a2a` does, and the rank keeps its block."""
+    from ..distributed.actctx import active
+    from ..distributed.collectives import all_gather
+
+    mesh, rules = lay.mesh, active()[1]
+    al = a2a_layout(cfg, mesh.shape, rules, lay.b, lay.s)
+    if p["router"].shape[-1] == cfg.n_experts:
+        p = {n: w[shard_index(n, w.shape, mesh.shape, mesh.coords)] for n, w in p.items()}
+    if (al.dp, al.seq_sharded) == (lay.batch, lay.seq_sharded):
+        return _a2a_body(p, x, cfg, mesh, al)
+    x = lay.gather_seq(all_gather(x, mesh, lay.batch, 0, "moe_a2a/in"), "moe_a2a/in")
+    y, aux = _moe_block_a2a(p, x, cfg, mesh, rules)
+    return lay.rows(y)[:, lay.s0:lay.s0 + lay.s_loc], aux
+
+
 def _a2a_body(p: dict, x_loc: torch.Tensor, cfg: ModelConfig, mesh, lay: A2ALayout
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bucketed expert-parallel dispatch on one rank (the reference's
@@ -324,7 +516,7 @@ def _a2a_body(p: dict, x_loc: torch.Tensor, cfg: ModelConfig, mesh, lay: A2ALayo
     # Local bucketing by global expert (stable sort + capacity drop).
     order, keep, dest = dispatch(gate_idx, e, c_e)
     if _records is not None:
-        _records.append(dict(probs=probs.detach(), gate_idx=gate_idx, keep=keep))
+        _records.append(dict(probs=probs.detach(), gate_idx=gate_idx, keep=keep, order=order))
     tok_idx = order // k
     xbuf = xt.new_zeros((e * c_e + 1, d))
     xbuf[dest] = xt[tok_idx]

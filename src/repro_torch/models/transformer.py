@@ -17,29 +17,38 @@ the hybrid stack (``torch.utils.checkpoint``, the reference's
 ``"slot{s}"`` with ``L`` its periods — and each layer writes its slice in
 place.
 
-On a rank mesh a dense or SSM stack runs sharded (``lay``, the model's
-``RankLayout``): the residual stream between layers is this rank's block
-(the reference's ``constrain(x, ("batch", "seq", None))`` at each layer),
-each layer's weights are gathered along ``d_model`` by one collective just
-before the layer runs and dropped after it, and the layer runs attention
-and MLP on this rank's heads and ``d_ff`` columns, or the mamba block on
-its ``d_inner`` channels (``models/ssm.py``).  The gather lies
-inside the checkpointed unit, so a training pass under ``cfg.remat``
-gathers each layer's weights again when the backward pass recomputes the
-layer, and drops them after, as the reference's ZeRO-3 under
-``jax.checkpoint`` does: a rank never holds more than one layer's
+On a rank mesh a dense, MoE or SSM stack runs sharded (``lay``, the
+model's ``RankLayout``): the residual stream between layers is this
+rank's block (the reference's ``constrain(x, ("batch", "seq", None))`` at
+each layer), each layer's weights are gathered along ``d_model`` by one
+collective just before the layer runs and dropped after it
+(:func:`gather_layer`), and the layer runs attention and MLP on this
+rank's heads and ``d_ff`` columns, the MoE block on its experts
+(``models/moe.py``: the global gather dispatch, or the a2a body on the
+stream's block, whose ``moe`` leaves the layer's gather leaves to it), or
+the mamba block on its ``d_inner`` channels (``models/ssm.py``).  The
+gather lies inside the checkpointed unit, so a training pass under
+``cfg.remat`` gathers each layer's weights again when the backward pass
+recomputes the layer, and drops them after, as the reference's ZeRO-3
+under ``jax.checkpoint`` does: a rank never holds more than one layer's
 gathered weights.  The recomputation stops at the layer's last saved
 tensor (``torch.utils.checkpoint``'s early stop, on by default), so it
 issues the layer's collectives up to its MLP's input gather (a mamba
-layer's up to its ``mamba/dtbc`` sum), each counted as the backward
-pass's (``collectives.recomputing``).  A decode tick on a rank mesh
-gathers each layer's weights the same way, and each attention layer
+layer's up to its ``mamba/dtbc`` sum, an MoE layer's under the gather
+dispatch up to its ``moe/counts`` gather, under the a2a dispatch all of
+them: its combine saves its indices after the last all-to-all), each
+counted as the backward pass's (``collectives.recomputing``).  The
+recomputed MoE layer routes as its forward pass did: the same inputs, the
+same deterministic router, sort and capacity.  A decode tick on a rank
+mesh gathers each layer's weights the same way, and each attention layer
 writes the new token's k and v into this rank's block of the caches
 where the block holds its position; a mamba layer updates its rows and
 channels of the conv window and the state.  Where the decode's batch
 does not split over ``data`` an SSM stack keeps its ``d_model`` blocks
-in place instead (``RankLayout.stationary``; ``ssm.mamba_decode``).  The
-hybrid stack is not sharded.
+in place instead (``RankLayout.stationary``; ``ssm.mamba_decode``); an
+MoE tick under the gather dispatch keeps its expert stacks' blocks in
+place (``RankLayout.experts_stationary``).  The hybrid stack is not
+sharded.
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ from ..configs.base import ModelConfig
 from ..distributed.collectives import recomputing
 from .attention import attn_defs, decode_attention, full_attention
 from .layers import mlp_block, mlp_defs, rms_norm
-from .moe import moe_block, moe_defs
+from .moe import a2a_on_ranks, moe_block, moe_defs
 from .params import P, Tree, tree_map_defs
 from .ssm import mamba_block, mamba_decode, mamba_defs
 
@@ -143,7 +152,7 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
     """→ (x, aux, state): the MoE balance term (float32, zero without an
     MoE), and the layer's cache contribution — attn: {"k","v"} over the S
     positions seen; mamba: {"conv","h"} final — or None.  ``lay``: the
-    dense or mamba layer on a rank mesh (module docstring)."""
+    dense, MoE or mamba layer on a rank mesh (module docstring)."""
     state = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
@@ -159,7 +168,7 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
     if ffn != "none":
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         if ffn == "moe":
-            y, aux = moe_block(lp["moe"], h, cfg)
+            y, aux = moe_block(lp["moe"], h, cfg, lay)
         else:
             y = mlp_block(lp["mlp"], h, cfg, lay)
         x = x + y
@@ -181,7 +190,7 @@ def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer
     if ffn != "none":
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         if ffn == "moe":
-            y, _ = moe_block(lp["moe"], h, cfg)
+            y, _ = moe_block(lp["moe"], h, cfg, lay)
         else:
             y = mlp_block(lp["mlp"], h, cfg, lay)
         x = x + y
@@ -214,7 +223,7 @@ def apply_stack_full(
     for the stacks without MoE.  With ``cfg.remat``, no state to collect
     and grad enabled, each layer (each period of the hybrid stack) is
     checkpointed: its activations are recomputed in the backward pass
-    instead of kept.  ``lay``: a dense or SSM stack on a rank mesh
+    instead of kept.  ``lay``: a dense, MoE or SSM stack on a rank mesh
     (module docstring)."""
     n_units, slots = _units(cfg)
     layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
@@ -222,7 +231,7 @@ def apply_stack_full(
     def unit(up, x, aux):
         states = {}
         if lay is not None:
-            up = lay.gather_params(up, layer_defs, "layer")
+            up = gather_layer(cfg, up, layer_defs, lay)
         for key, mixer, ffn in slots:
             lp = up if key is None else up[key]
             x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state, lay)
@@ -247,6 +256,41 @@ def apply_stack_full(
     return x, aux, _stack_trees(states)
 
 
+def gather_layer(cfg: ModelConfig, up: Tree, defs: Tree, lay) -> Tree:
+    """One layer's weights with ``d_model`` whole (``RankLayout.
+    gather_params``), but the ``moe`` leaves that stay as they are: all of
+    them where the layer takes the a2a dispatch, whose body gathers them
+    over ``data`` itself, and the expert stacks where the layout keeps
+    their ``d_model`` blocks in place (``experts_stationary``)."""
+    kept = moe_kept_leaves(cfg, lay.mesh, lay.experts_stationary)
+    if not kept:
+        return lay.gather_params(up, defs, "layer")
+    out = lay.gather_params(_without(up, kept), _without(defs, kept), "layer")
+    out["moe"] = dict(out.get("moe", {}), **{k: up["moe"][k] for k in kept})
+    return out
+
+
+def moe_kept_leaves(cfg: ModelConfig, mesh, experts_stationary: bool) -> Tuple[str, ...]:
+    """The ``moe`` leaves a layer's gather over ``data`` leaves as they
+    are on a rank mesh of ``mesh``'s shape (:func:`gather_layer`)."""
+    if cfg.family != "moe":
+        return ()
+    names = tuple(moe_defs(cfg))
+    if a2a_on_ranks(cfg, mesh):
+        return names
+    return tuple(n for n in names if n != "router") if experts_stationary else ()
+
+
+def _without(tree: Tree, kept: Tuple[str, ...]) -> Tree:
+    """``tree`` without the ``moe`` leaves ``kept`` (and without ``moe``
+    where none is left)."""
+    rest = {k: v for k, v in tree["moe"].items() if k not in kept}
+    out = {k: v for k, v in tree.items() if k != "moe"}
+    if rest:
+        out["moe"] = rest
+    return out
+
+
 def _remat_contexts():
     """A checkpointed unit's contexts: none for its forward, and
     ``collectives.recomputing`` for its recomputation."""
@@ -265,7 +309,7 @@ def apply_stack_decode(
     """One-token pass → (x, caches); each layer writes its slice of the
     stacked caches in place, and the same dict is returned.  An MoE
     layer's auxiliary loss is dropped, as in the reference.  ``lay``: a
-    dense or SSM stack on a rank mesh under the decode rules, whose caches
+    dense, MoE or SSM stack on a rank mesh under the decode rules, whose caches
     are this rank's blocks (module docstring; ``attention.decode_attention``,
     ``ssm.mamba_decode``)."""
     n_units, slots = _units(cfg)
@@ -273,7 +317,7 @@ def apply_stack_decode(
     for ui in range(n_units):
         up, cu = _index_tree(stack, ui), _index_tree(caches, ui)
         if lay is not None and not lay.stationary:
-            up = lay.gather_params(up, layer_defs, "layer")
+            up = gather_layer(cfg, up, layer_defs, lay)
         for key, mixer, ffn in slots:
             lp, cc = (up, cu) if key is None else (up[key], cu[key])
             x = _apply_layer_decode(lp, x, cfg, rope, mixer, ffn, cc, pos, lay)
