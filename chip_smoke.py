@@ -23,7 +23,7 @@ result lines are printed:
               through ``ClusterController``, on the ``cuda`` backend (ledger
               mirror on the card) and on ``numpy``; the schedules must be
               byte-identical and every wave must have launched the kernel.
-4. failure  — a k=8 fat-tree with a core switch killed mid-stream; the
+4. failure  — a k=8 fat-tree, 1 000 tasks, a core switch killed mid-stream; the
               reroute engine's column scans run on the card; schedules and
               reroute logs identical to the ``numpy`` backend's.  The
               ``(n, L, W)`` of every column launch of the ``cuda`` leg, as
@@ -54,7 +54,7 @@ result lines are printed:
               the plain version's and the bound, and the special-function
               units' measured ex2 rate (probe in ``csrc/mamba_scan.cu``).
               falcon-mamba-7b at full
-              width, 16 of its 64 layers (bf16, seeded random parameters,
+              width, 8 of its 64 layers (bf16, seeded random parameters,
               2 × 1 024 seeded tokens): (b) ``make_eval_step`` through K4
               (one launch per layer) and through the plain time loop, the
               two losses within 1e-3 in bf16 and, on float32 parameters,
@@ -79,7 +79,7 @@ result lines are printed:
               from snapshot bytes plus the journal replay; a state restore
               across a retire with the mirror live; the affine hierarchy's
               snapshot twin; (c) ``bench_faults.py``'s storm at k 8 with
-              3 000 tasks (host kills, stragglers, retries, LATE
+              500 tasks (host kills, stragglers, retries, LATE
               speculation) on both reroute engines.  K1's launches on each
               path go on the kernel line.
 9. models   — the MoE, hybrid and encoder-decoder families on the serving
@@ -111,10 +111,10 @@ result lines are printed:
               the card; step time, tokens/s, peak memory, one profiled
               step's idle share, the seconds ``save`` held the loop and
               each write took; one more step counted for phase 11, with
-              ``torch.cuda.max_memory_allocated`` over it.  (b) ``--preset 100m``: 8 straight steps
-              against 4 then ``--resume`` for 4 more, each leg its own
-              process; the two step-8 checkpoints the same bytes.  (c)
-              ``plan_epoch`` and ``prefetch_epoch`` of 16 384 shards of
+              ``torch.cuda.max_memory_allocated`` over it.  (b) ``--preset 100m``: 4 straight steps
+              against 2 then ``--resume`` for 2 more, each leg its own
+              process; the two step-4 checkpoints the same bytes.  (c)
+              ``plan_epoch`` and ``prefetch_epoch`` of 8 192 shards of
               512 MB on the 4 096 hosts of phase 3, ``cuda`` then
               ``numpy``, byte-identical (a leg past 60 s halves the shard
               count, printed).  (d) ``tree_compress_with_feedback`` over
@@ -148,12 +148,13 @@ result lines are printed:
               drop rate; (b) moonshot-v1-16b-a3b at full width through a
               ``ServeEngine`` on every rank (2 requests of 512 tokens, 4
               new), at the largest depth whose reckoned bytes fit 70 GB
-              (all 48 layers), the greedy tokens equal on every rank and
+              (all 48 layers), capped at 12 for the script's time, the
+              greedy tokens equal on every rank and
               K2 once per layer and prefill on each; at 2 layers in
               float32 every rank's prefill logits within 1e-4 of the
               one-rank gather's; (c) phi3.5-moe-42b-a6.6b at full width
               (16 experts, 4 a rank) served the same way at the largest
-              depth that fits; (d) every rank's counted collectives equal
+              depth that fits, capped at 6 for the script's time; (d) every rank's counted collectives equal
               to ``launch/expert.py::a2a_collectives`` op for op.
 13. sharded — mistral-nemo-12b at full width sharded over 4 ranks of the
               one card (``launch/sharded.py``), each holding its blocks of
@@ -163,8 +164,8 @@ result lines are printed:
               through host memory as in phase 12, once the card's memory
               is back: (a) 2 layers in float32, the prefill logits of 2 of
               phase 6's prompts and their loss against the one-rank
-              model's within 1e-4; (b) all 40 layers in bf16 with K2 on
-              each rank's heads (40 launches a prefill), the 4 ranks'
+              model's within 1e-4; (b) 10 of 40 layers in bf16 with K2 on
+              each rank's heads (10 launches a prefill), the 4 ranks'
               last-position logits no farther from the float32 prefill
               than 1.5 × the one-rank bf16 logits are, and the same first
               tokens; (c) on (2, 2) the bf16 loss of 2 × 1 024 tokens
@@ -178,15 +179,15 @@ result lines are printed:
               ``"train"`` entry; gloo staged through host memory), the
               rules from ``launch/dryrun.py::policy_rules``: (2, 2) under
               the baseline and (1, 4) under ``opt`` (12.2 G parameters:
-              ``ACT_RULES_TRAIN_OPT``); two steps of 2 microbatches of
-              2 × 1 024, parameters and moments donated; then on the same
-              card the one-rank steps from the same seed: (a) 2 layers in
-              float32: each step's loss and grad norm within 1e-4, every
-              leaf of the final m within 1e-3 of its largest |m|; (b) 4
-              layers in bf16 (depth by the memory reckoning in PERF.md
-              and the script's time): losses within 1e-2 and
-              grad norms within 2 %, then an eval of 2 × 512 through K2 on
-              each rank's heads of the updated shards (4 launches a rank)
+              ``ACT_RULES_TRAIN_OPT``); steps of 4 × 1 024 (in bf16 2
+              microbatches of 2 × 1 024), parameters and moments donated;
+              then on the same card the one-rank steps from the same seed:
+              (a) 2 layers in float32, one step: its loss and grad norm within 1e-4, every
+              leaf of the m within 1e-3 of its largest |m|; (b) 2
+              layers in bf16, one step (depth and steps by the script's
+              time): its loss within 1e-2 and
+              grad norm within 2 %, then an eval of 2 × 512 through K2 on
+              each rank's heads of the updated shards (2 launches a rank)
               within 1e-2 of the one-rank
               model's; K2 launched no time in the train steps (they take
               the chunked attention, as the reference's train cell does);
@@ -201,15 +202,15 @@ result lines are printed:
               embedding's vocab-parallel block, the rules from
               ``policy_rules`` (``ACT_RULES_DECODE`` for the ticks): (a) 2
               layers in float32 on (1, 4) and (2, 2): the prefill of 2 ×
-              512, the loss of 2 × 1 024 and 4 ticks fed from the
-              prefill's states within 1e-4 of one rank, and on (2, 2) two
-              train steps (accum 2, baseline) by phase 14's (a) gates; (b)
-              all 64 layers in bf16 on (1, 4): the prefill no farther from
+              512, the loss of 2 × 1 024 and 2 ticks fed from the
+              prefill's states within 1e-4 of one rank, and on (2, 2) a
+              train step (accum 2, baseline) by phase 14's (a) gates; (b)
+              16 of 64 layers in bf16 on (1, 4): the prefill no farther from
               float32 than 1.5 × one rank's bf16 (first tokens equal), the
-              eval of 2 × 1 024 through K4 (64 launches a rank at d_in
+              eval of 2 × 1 024 through K4 (16 launches a rank at d_in
               2 048; its distance from one rank's time loop reported), the
               same eval in float32 within 1e-4 of one rank's float32 time
-              loop, 8 ticks, a tick at decode_32k's B 128 and one at
+              loop, 4 ticks, a tick at decode_32k's B 128 and one at
               long_500k's B 1, ``pos`` 524 287, each by the same 1.5 ×
               rule; (c) two bf16 train steps on (1, 4) under ``opt`` at 4
               layers by phase 14's (b) gates; (d) every rank's collectives equal to
@@ -221,16 +222,16 @@ result lines are printed:
               ``model``, the rules from ``policy_rules``, the one-rank
               references first: (a) 2 layers in float32 under the
               baseline (the sharded gather dispatch) on (1, 4) and (2, 2):
-              the prefill of 2 × 512, the loss of 2 × 1 024 and 4 ticks
+              the prefill of 2 × 512, the loss of 2 × 1 024 and 2 ticks
               fed from the prefill's caches within 5e-5 of one rank, with
               each rank's routing against one rank's reported, and on
               (2, 2) one train step (accum 2) whose loss and grad norm are
-              within 1e-5 of one rank's; (b) 24 of 48 layers in bf16 on
+              within 1e-5 of one rank's; (b) 6 of 48 layers in bf16 on
               (1, 4) under the baseline: the prefill's first tokens equal
               or a near tie (its logits' distance from float32 reported
               beside one rank's), the loss of 2 × 1 024 no farther from
               float32 than 1.5 × one rank's bf16 loss and within 1e-2 of
-              it, 8 ticks reported; (c) 2 layers on (1, 4) under ``opt``
+              it, 4 ticks reported; (c) 2 layers on (1, 4) under ``opt``
               (the a2a dispatch on each rank's block of the stream, at a
               capacity no bucket overflows): a float32 prefill within 5e-5
               of one rank's, a bf16 prefill's first tokens by (b)'s rule,
@@ -239,6 +240,30 @@ result lines are printed:
               ``sharded_collectives``, K2 once a layer on each rank in
               every prefill and eval; per rank the step and tick times,
               wire bytes by kind, memory.
+17. sharded hybrid — jamba-v0.1-52b at full width sharded over 4 ranks
+              of the one card (gloo, host-staged), each slot of a period
+              as its own family on ranks and one slot's weights gathered
+              at a time, the one-rank references first: (a) one period
+              (8 layers) in float32 on (1, 4): the prefill's logits
+              within 1e-4, the loss of 2 × 1 024 and 4 ticks from the
+              prefill's caches within 5e-5 of one rank, routing 100 % one
+              rank's; (b) the period in bf16 on (1, 4): the prefill's
+              first tokens equal or a near tie, the eval through K2 and K4
+              no farther from float32 than 1.5 × one rank's and within
+              1e-2 of it, 4 ticks reported; (c) the bf16 period on (2, 2):
+              the prefill and 2 ticks by (b)'s rules, at most 14 GB a
+              rank; (d) two
+              long_500k ticks (B 1, ``pos`` 524 286 and 524 287) on seeded
+              caches, every slot stationary: each no farther from float32
+              than 1.5 × one rank's, no ``layer`` gather; (e) one period
+              under ``opt`` at capacity factor 8: a float32 prefill within
+              1e-4 of one rank's, routing 100 % equal, a bf16 prefill
+              reported; (f) ``Model.loss`` under ``torch.autograd.grad``
+              on one bf16 period, ``remat`` on: the loss within 1e-2 and
+              the grad norm within 0.5 % of one rank's; (g) every rank's
+              collectives equal to ``sharded_collectives``, K2 once a
+              period in every prefill and eval, K4 7 times a period in
+              every eval.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -255,8 +280,9 @@ kernels in one call.
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --sharded-ssm
     python3 chip_smoke.py --sharded-moe
+    python3 chip_smoke.py --sharded-hybrid
 
-build the kernels and run phase 14, 13, 15 or 16 alone (its line only).
+build the kernels and run phase 14, 13, 15, 16 or 17 alone (its line only).
 """
 from __future__ import annotations
 
@@ -699,13 +725,13 @@ def _fleet_leg(backend: str, pods=16, hosts=256, n_tasks=40_000, batch=1024):
 
 
 def phase_main_path():
-    """The fleet run on ``cuda`` and ``numpy`` in turns (cuda, numpy, numpy,
-    cuda), so that host noise shows as the spread within each backend.
-    Every leg's schedule must equal the first numpy leg's."""
+    """The fleet run on ``cuda``, then on ``numpy`` (the repeats of each, run
+    before for the spread of host noise, were cut for the script's time).
+    The cuda leg's schedule must equal the numpy leg's."""
     from repro_torch.convert import canon
 
     legs, ref = [], None
-    for backend in ("cuda", "numpy", "numpy", "cuda"):
+    for backend in ("cuda", "numpy"):
         ctrl, leg = _fleet_leg(backend)
         leg["schedule"] = canon(ctrl.schedule().assignments)
         leg["ledger"] = ctrl.state.ledger.reserved.copy()
@@ -734,7 +760,12 @@ def phase_main_path():
 # -- phase 4 -------------------------------------------------------------------
 
 
-def _failure_leg(backend: str, k=8, n_tasks=3000, shapes=None):
+# 1 000 tasks (3 000 before, for the script's time, PERF.md §4): each leg
+# still reroutes half of them round the dead core switch.
+FAILURE_TASKS = 1000
+
+
+def _failure_leg(backend: str, k=8, n_tasks=FAILURE_TASKS, shapes=None):
     """Sources in the lower pods, workers in the upper ones, so every shard
     crosses the core; half the tasks are placed, core0_0 dies under their
     transfers, then the other half arrive on the degraded fabric.  With
@@ -1079,8 +1110,8 @@ def _f32_forward(cfg, params, tokens, dev):
     plain attention path (the SSM's time loop), with each layer's bf16
     weights upcast as the layer runs (a float32 copy of all the weights
     would not fit beside the bf16 ones) → (the float32 model, its head's
-    parameters, the last layer's output).  A uniform stack: dense, MoE or
-    SSM."""
+    parameters, the last layer's output).  Any decoder-only stack: dense,
+    MoE, SSM, or a hybrid's periods slot by slot."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -1089,13 +1120,16 @@ def _f32_forward(cfg, params, tokens, dev):
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla",
                       ssm_impl="xla")
     model = Model(cfg32)
+    n_units, slots = tf._units(cfg)
     with torch.no_grad():
         x = params["embed"][torch.as_tensor(tokens, device=dev).long()].float()
         rope = model._rope(torch.arange(x.shape[1], device=dev))
-        mixer, ffn = tf._slot_kind(cfg, 0)
-        for li in range(cfg.n_layers):
-            lp = _up(tf._index_tree(params["stack"], li))
-            x, _, _ = tf._apply_layer_full(lp, x, cfg32, rope, mixer, ffn, False)
+        for ui in range(n_units):
+            up = tf._index_tree(params["stack"], ui)
+            for key, mixer, ffn in slots:
+                lp = _up(up if key is None else up[key])
+                x, _, _ = tf._apply_layer_full(lp, x, cfg32, rope, mixer, ffn, False)
+                del lp
         return model, _up(_head_params(cfg, params)), x
 
 
@@ -1251,7 +1285,7 @@ SCAN_TOL = 2e-4  # tests/test_kernels.py's atol for the scan, float32
 # shape — falcon-mamba-7b's scan over a batch of 2 × 1 024 tokens.
 MAMBA_SHAPES = [(2, 256, 128, 8), (1, 512, 256, 16), (2, 128, 512, 4),
                 (2, 1024, 8192, 16)]
-TRAIN = dict(arch="falcon-mamba-7b", n_layers=16, batch=2, seq=1024, steps=3,
+TRAIN = dict(arch="falcon-mamba-7b", n_layers=8, batch=2, seq=1024, steps=3,
              peak_lr=1e-3, warmup=1)
 # (b): the K4 path and the time-loop path compute the same float32 scan
 # and differ only in its rounding.  In float32 throughout that is all the
@@ -1442,8 +1476,9 @@ def phase_train():
              for (path, new), (_, old) in zip(flatten(p), flatten(params))}
     sizes = {"/".join(path): t.numel() for path, t in flatten(params)}
     moved_all = sum(moved[k] * sizes[k] for k in moved) / sum(sizes.values())
-    run = dict(config=TRAIN, cut="n_layers 64 -> 16 (one H100 holds the bf16 "
-               "parameters, gradients and float32 moments of 16 layers, not of 64)",
+    run = dict(config=TRAIN, cut="n_layers 64 -> 8 (one H100 holds the bf16 "
+               "parameters, gradients and float32 moments of 16 layers, not of 64; "
+               "8 for the script's time)",
                params=count_params(Model(cfg).defs()), init_s=init_s, losses=losses,
                grad_norms=norms, step_s=step_s, step_p50_s=float(np.median(step_s)),
                tokens_s=n_tokens / float(np.median(step_s)), max_memory_allocated=peak,
@@ -1540,7 +1575,9 @@ LEG_LIMIT_S = 60.0  # a longer hierarchy leg cuts its job count
 # 4–8× slower, retries (4 attempts, 0.5 s backoff).
 RECOVERY = dict(k=8, tasks=128, crashes=6, stragglers=16, crash_at=1.2, outage=1.0,
                 batches=8, estimator="window")
-STORM = dict(k=8, tasks=3000, crashes=6, stragglers=16)
+# The storm at 500 tasks (3 000 before, for the script's time, PERF.md §4):
+# the same faults (6 hosts down and back, every killed task retried).
+STORM = dict(k=8, tasks=500, crashes=6, stragglers=16)
 BACKENDS = ("cuda", "numpy")  # each leg on the card, then the reference
 _CANON_EXCLUDE = ("wavefront.", "recovery.")
 
@@ -2275,13 +2312,15 @@ def phase_models():
 # (256 of them vision embeddings), seeded random parameters, a checkpoint
 # every 3 steps (about 4.9 GB each: bf16 parameters, float32 m and v).
 TRAINER = dict(arch="internvl2-1b", steps=6, batch=8, seq=1024, ckpt_every=3)
-# (b) the 126 M preset at full size: 8 straight steps, and 4 then --resume
-# for 4 more, each leg its own process; the two step-8 checkpoints equal.
-RESTART = dict(preset="100m", steps=8, cut=4, batch=8, seq=256)
+# (b) the 126 M preset at full size: 4 straight steps, and 2 then --resume
+# for 2 more, each leg its own process; the two step-4 checkpoints equal
+# (8 and 4 before, cut for the script's time).
+RESTART = dict(preset="100m", steps=4, cut=2, batch=8, seq=256)
 # (c) plan_epoch then prefetch_epoch on phase 3's 4 096 hosts with
 # examples/bass_cluster_demo.py's 512 MB shards, three replicas, seed 7, an
-# idle backlog; a cuda leg past EPOCH_LIMIT_S halves the shard count.
-EPOCH = dict(pods=16, hosts=256, shards=16_384, size_bytes=512e6, replication=3, seed=7)
+# idle backlog (8 192 shards: 16 384 before, cut for the script's time); a
+# cuda leg past EPOCH_LIMIT_S halves the shard count.
+EPOCH = dict(pods=16, hosts=256, shards=8_192, size_bytes=512e6, replication=3, seed=7)
 EPOCH_LIMIT_S = 60.0
 
 
@@ -2429,10 +2468,10 @@ def _npz_members(path):
 
 
 def _phase10_restart():
-    """(b) ``python -m repro_torch.launch.train --preset 100m``: 8 straight
-    steps in one process, beside 4 steps and then ``--resume`` for 4 more
-    in two others; every leaf of the two step-8 checkpoints must be the same
-    bytes."""
+    """(b) ``python -m repro_torch.launch.train --preset 100m``: RESTART's
+    straight steps in one process, beside its cut and then ``--resume`` for
+    the rest in two others; every leaf of the two last checkpoints must be
+    the same bytes."""
     import shutil
     import tempfile
 
@@ -2763,8 +2802,9 @@ EXPERT_RANK_OVERHEAD = 0.8e9     # a rank's CUDA context and activations
 EXPERT_SERVE = dict(slots=1, s_max=640, requests=2, prompt_len=512, max_new=4)
 EXPERT_LIMIT = 600               # seconds for one multi-rank run
 # Served depth caps for the script's time (phi3.5-moe: 21 of 32 layers fit
-# by the reckoning; PERF.md §4).
-EXPERT_MAX_LAYERS = {"phi3.5-moe-42b-a6.6b": 12}
+# by the reckoning, moonshot all 48; 6 and 12 for the script's time,
+# PERF.md §4).
+EXPERT_MAX_LAYERS = {"phi3.5-moe-42b-a6.6b": 6, "moonshot-v1-16b-a3b": 12}
 # a2a against the one-rank gather, float32: the same products over other
 # buffer shapes, and the balance sums over the ranks in another order.
 EXPERT_TOL = 1e-4
@@ -2780,7 +2820,9 @@ def _card_released(free_before, limit_s=60.0):
     while torch.cuda.mem_get_info()[0] < free_before - 2**30:
         if time.perf_counter() - t0 > limit_s:
             raise AssertionError(f"the card's memory was not released in {limit_s} s: "
-                                 f"{torch.cuda.mem_get_info()[0]} B free, {free_before} before")
+                                 f"{torch.cuda.mem_get_info()[0]} B free, {free_before} before; "
+                                 f"this process {torch.cuda.memory_allocated()} B allocated, "
+                                 f"{torch.cuda.memory_reserved()} B reserved")
         time.sleep(0.1)
     return time.perf_counter() - t0
 
@@ -3032,6 +3074,9 @@ SHARDED_BF16_FACTOR = 1.5
 # whose prefill and loss each take 15–16 s a rank in gloo, for the script's
 # time.
 SHARDED_REPS = 1
+# (b), (c) at 10 of 40 layers, for the script's time (PERF.md §4): the
+# one-rank references at the same depth.
+SHARDED_BF16_LAYERS = 10
 # (e), (f): decode ticks under ACT_RULES_DECODE (the caches' positions over
 # ``model``) after the prefill, into caches of DECODE_S_MAX positions,
 # teacher-forced with the one-rank model's greedy tokens; then one tick on
@@ -3043,7 +3088,7 @@ SHARDED_REPS = 1
 # through host memory.  (e) holds SHARDED_TOL against the one-rank model,
 # (f) SHARDED_BF16_FACTOR against the float32 reference.
 DECODE_S_MAX = 1024
-DECODE_TICKS = dict(f32=4, bf16=8)
+DECODE_TICKS = dict(f32=2, bf16=4)     # for the script's time (PERF.md §4)
 LONG = dict(b=4, s_max=32768, pos=32000, seed=SEED + 23)
 
 
@@ -3105,12 +3150,20 @@ def _ticks_f32(cfg, params, prompts, fed, dev):
 
 
 def _seeded_tick_f32(cfg, params, token, spec, dev):
-    """One tick in float32 throughout on the caches ``spec`` (``b``,
-    ``s_max``, ``pos``, ``seed``) draws, layer by layer: each layer's bf16
-    weights upcast, its cache slabs drawn from the seed
-    (``launch/sharded.py::cache_slab``), rounded to the dtype the ranks
-    hold them in and upcast, and dropped after the layer; the whole
-    float32 cache is never held → ``[B, V]``."""
+    """One tick in float32 throughout on the caches ``spec`` draws
+    (:func:`_seeded_ticks_f32`) → ``[B, V]``."""
+    return _seeded_ticks_f32(cfg, params, token, spec, dev)[0]
+
+
+def _seeded_ticks_f32(cfg, params, tokens, spec, dev):
+    """Chained ticks of ``tokens`` ``[B, n]`` from ``spec["pos"]`` in
+    float32 throughout on the caches ``spec`` (``b``, ``s_max``, ``pos``,
+    ``seed``) draws, layer by layer (a hybrid's periods slot by slot): each
+    layer's bf16 weights upcast, its cache slabs drawn from the seed
+    (``launch/sharded.py::cache_slab``, by absolute layer), rounded to the
+    dtype the ranks hold them in and upcast, the n ticks run through the
+    layer in turn, and the slabs dropped after it; the whole float32 cache
+    is never held → ``[n, B, V]``."""
     import torch
 
     from repro_torch.launch.sharded import cache_dtype, cache_slab
@@ -3119,18 +3172,25 @@ def _seeded_tick_f32(cfg, params, token, spec, dev):
 
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32", attn_impl="xla")
     model = Model(cfg32)
-    decls = Model(cfg).cache_defs(spec["b"], spec["s_max"])
+    n_units, slots = tf._units(cfg)
+    tokens = np.asarray(tokens)
     with torch.no_grad():
-        x = params["embed"][torch.as_tensor(token, device=dev).long()].float()
-        rope = model._rope(torch.tensor([spec["pos"]], device=dev))
-        mixer, ffn = tf._slot_kind(cfg, 0)
-        for li in range(cfg.n_layers):
-            lp = _up(tf._index_tree(params["stack"], li))
-            cache = {w: cache_slab(cfg, spec["b"], spec["s_max"], spec["seed"], li, w, dev)
-                     .to(cache_dtype(cfg, decl)).float() for w, decl in decls.items()}
-            x = tf._apply_layer_decode(lp, x, cfg32, rope, mixer, ffn, cache, spec["pos"])
-            del cache, lp
-        return model._head(_up(_head_params(cfg, params)), x)[:, 0]
+        x = params["embed"][torch.as_tensor(tokens, device=dev).long()].float()
+        ropes = [model._rope(torch.tensor([spec["pos"] + t], device=dev))
+                 for t in range(tokens.shape[1])]
+        for ui in range(n_units):
+            up = tf._index_tree(params["stack"], ui)
+            for si, (key, mixer, ffn) in enumerate(slots):
+                lp = _up(up if key is None else up[key])
+                decls = tf._mixer_cache_defs(cfg, mixer, spec["b"], spec["s_max"])
+                cache = {w: cache_slab(cfg, spec["b"], spec["s_max"], spec["seed"],
+                                       ui * len(slots) + si, w, dev)
+                         .to(cache_dtype(cfg, decl)).float() for w, decl in decls.items()}
+                x = torch.cat([tf._apply_layer_decode(lp, x[:, t:t + 1], cfg32, ropes[t], mixer,
+                                                      ffn, cache, spec["pos"] + t)
+                               for t in range(tokens.shape[1])], 1)
+                del cache, lp
+        return model._head(_up(_head_params(cfg, params)), x).transpose(0, 1)
 
 
 def _sharded_decode(ranks, case, ccfg, mesh, ref, label, fails):
@@ -3210,7 +3270,8 @@ def phase_sharded(free_before):
     t0 = time.perf_counter()
     released = [_card_released(free_before)]
     cuda = torch.device("cuda", 0)
-    cfg = get_config(SERVE["arch"]).with_(attn_impl="pallas", remat=False)
+    cfg = get_config(SERVE["arch"]).with_(attn_impl="pallas", remat=False,
+                                          n_layers=SHARDED_BF16_LAYERS)
     prompts = np.stack([r.prompt for r in make_requests(cfg, SHARDED_PROMPTS,
                                                         SERVE["prompt_len"], 1, SEED)])
     loss_tokens = np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size,
@@ -3221,7 +3282,7 @@ def phase_sharded(free_before):
     released.append(_card_released(free_before))
 
     f32 = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
-    full = dict(attn_impl="pallas", remat=False)
+    full = dict(attn_impl="pallas", remat=False, n_layers=SHARDED_BF16_LAYERS)
     long = dict(tokens=long_token, seed=LONG["seed"], s_max=LONG["s_max"], pos=LONG["pos"])
     cases = []
     for mesh in SHARDED_MESHES:
@@ -3250,13 +3311,14 @@ def phase_sharded(free_before):
     out = dict(rules=SHARDED_RULES, prompts=list(prompts.shape), loss_shape=SHARDED_LOSS_SHAPE,
                decode=dict(s_max=DECODE_S_MAX, ticks=DECODE_TICKS, long=LONG),
                reference_s=ref_s, ranks_s=ranks_s, released_s=released,
+               bf16_layers=SHARDED_BF16_LAYERS,
                reference_losses=dict(f32_2_layers=ref["f32"]["loss"],
                                      bf16=ref["bf16"]["loss"], f32=ref["bf16"]["loss_f32"]))
     fails = []
     for i, case in enumerate(cases):
         ranks = [r[i] for r in res]
         mesh = dict(zip(("data", "model"), case["mesh"]))
-        depth = "f32_2_layers" if "n_layers" in case["cfg"] else "bf16"
+        depth = "f32_2_layers" if "compute_dtype" in case["cfg"] else "bf16"
         label = f"{depth}_{case['mesh'][0]}x{case['mesh'][1]}"
         ccfg = cfg.with_(**case["cfg"])
         size = 4 if depth != "bf16" else 2
@@ -3336,9 +3398,9 @@ def phase_sharded(free_before):
 # 6).
 TRAIN_MESHES = (((2, 2), "baseline"), ((1, 4), "opt"))
 TRAIN_SHAPE = (4, 1024)           # the batch
-TRAIN_ACCUM = 2                   # microbatches of 2 × 1 024
-TRAIN_LAYERS = dict(bf16=4, f32=2)
-TRAIN_STEPS = 2
+TRAIN_ACCUM = dict(f32=1, bf16=2)  # microbatches; f32 1 for the script's time (PERF.md §4)
+TRAIN_LAYERS = dict(bf16=2, f32=2)     # for the script's time (PERF.md §4)
+TRAIN_STEPS = dict(f32=1, bf16=1)      # for the script's time (PERF.md §4)
 TRAIN_EVAL_SHAPE = (2, 512)       # the eval through K2 after the bf16 steps
 TRAIN_LIMIT = 900                 # seconds for the multi-rank run
 # Gates, fixed before the first run.  f32 at 2 layers against the one-rank
@@ -3441,7 +3503,7 @@ def phase_sharded_train(free_before):
     for key in ("f32", "bf16"):
         for mesh, policy in TRAIN_MESHES:
             case = dict(mesh=mesh, policy=policy, cfg=depth[key],
-                        train=dict(tokens=tokens, accum=TRAIN_ACCUM, steps=TRAIN_STEPS,
+                        train=dict(tokens=tokens, accum=TRAIN_ACCUM[key], steps=TRAIN_STEPS[key],
                                    host=("m",) if key == "f32" else ()))
             if key == "bf16":
                 case["loss"] = dict(tokens=eval_tokens, cfg=dict(attn_impl="pallas"))
@@ -3465,7 +3527,7 @@ def phase_sharded_train(free_before):
     for key in ("f32", "bf16"):
         c = cfg.with_(**depth[key])
         refs[key] = _train_reference(c, tokens, eval_tokens if key == "bf16" else None,
-                                     TRAIN_STEPS, TRAIN_ACCUM, cuda)
+                                     TRAIN_STEPS[key], TRAIN_ACCUM[key], cuda)
         for i, case in enumerate(cases):
             if case["cfg"] is not depth[key]:
                 continue
@@ -3475,7 +3537,7 @@ def phase_sharded_train(free_before):
             r0 = ranks[0]
             size = 4 if key == "f32" else 2
             want = sharded_collectives(c, mesh_shape, r0["rules"], *TRAIN_SHAPE, size, size,
-                                       "train", TRAIN_ACCUM, r0["param_rules"])
+                                       "train", TRAIN_ACCUM[key], r0["param_rules"])
             if any(r["train"]["ops"] != want for r in ranks):
                 fails.append(f"{label}: a rank's train ops differ from the formula")
             entry = dict(
@@ -3549,18 +3611,21 @@ def phase_sharded_train(free_before):
 # (a) f32 at 2 layers on (1, 4) and (2, 2): the prefill of phase 6's prompt
 # shape (2 × 512, falcon's vocabulary), the loss of SSM["loss"], the
 # prefill's states handed to SSM["ticks"]["f32"] ticks forced with one
-# rank's greedy tokens, and on (2, 2) a two-step train step (accum 2) under
-# the baseline; (b) bf16 at all 64 layers on (1, 4): the prefill against
-# float32, the eval through K4 on each rank's 2 048 channels, 8 ticks, one
+# rank's greedy tokens, and on (2, 2) a train step (accum 2) under
+# the baseline; (b) bf16 at SSM["bf16_layers"] of 64 layers on (1, 4): the
+# prefill against float32, the eval through K4 on each rank's 2 048
+# channels (and the same eval in float32), 4 ticks, one
 # tick at decode_32k's shape (B 128) and one at long_500k's (B 1, pos
 # 524 287), each on states drawn from a seed (``seeded_caches``); (c) a bf16
 # train step on (1, 4) under ``opt`` (ACT_RULES_TRAIN_OPT at 7.0 G
 # parameters) at SSM["train_layers"] (the memory reckoning and the script's
 # time, PERF.md: 8 layers took 17–18 s a rank on the ranks).  No (2, 2) bf16 run at 64 layers: its weight gathers over
-# ``data`` would move about 3.5 GB a rank a pass through host memory.
+# ``data`` would move about 3.5 GB a rank a pass through host memory.  (b)
+# and its float32 eval at 16 of 64 layers, for the script's time (PERF.md
+# §4).
 SSM = dict(arch="falcon-mamba-7b", meshes=((1, 4), (2, 2)), prompts=2, prompt_len=512,
-           loss=(2, 1024), ticks=dict(f32=4, bf16=8), train=(4, 1024), accum=2, steps=2,
-           train_layers=4, limit=900)
+           loss=(2, 1024), ticks=dict(f32=2, bf16=4), train=(4, 1024), accum=2,
+           steps=dict(f32=1, bf16=2), train_layers=4, bf16_layers=16, limit=900)
 SSM_SEEDED = dict(decode_32k=dict(b=128, s_max=0, pos=32_000, seed=SEED + 41),
                   long_500k=dict(b=1, s_max=0, pos=524_287, seed=SEED + 43))
 # (e) K4 at the ranks' shapes: d_in 8 192 over model 4 and 2.
@@ -3858,7 +3923,7 @@ def phase_sharded_ssm(free_before):
     released = [_card_released(free_before)]
     cuda = torch.device("cuda", 0)
     arch = SSM["arch"]
-    cfg = get_config(arch)
+    cfg = get_config(arch).with_(n_layers=SSM["bf16_layers"])
     rng = np.random.default_rng(SEED + 15)
     prompts = np.stack([r.prompt for r in make_requests(cfg, SSM["prompts"], SSM["prompt_len"],
                                                         1, SEED)])
@@ -3876,19 +3941,21 @@ def phase_sharded_ssm(free_before):
                   decode=[dict(tokens=ref["f32"]["fed"])], loss=dict(tokens=loss_tokens))
              for mesh in SSM["meshes"]]
     cases.append(dict(mesh=(2, 2), cfg=f32, train=dict(tokens=train_tokens, accum=SSM["accum"],
-                                                         steps=SSM["steps"], host=("m",))))
+                                                         steps=SSM["steps"]["f32"],
+                                                         host=("m",))))
     seeded = [dict(tokens=seeded_tokens[name], seed=spec["seed"], s_max=0, pos=spec["pos"])
               for name, spec in SSM_SEEDED.items()]
-    cases.append(dict(mesh=(1, 4), cfg={}, prefill=dict(tokens=prompts),
+    bf16 = dict(n_layers=SSM["bf16_layers"])
+    cases.append(dict(mesh=(1, 4), cfg=bf16, prefill=dict(tokens=prompts),
                       decode=[dict(tokens=ref["bf16"]["fed"])] + seeded,
                       loss=dict(tokens=loss_tokens, cfg=dict(ssm_impl="pallas"))))
     f32_eval = len(cases)
-    cases.append(dict(mesh=(1, 4), cfg=SSM_EVAL_F32,
+    cases.append(dict(mesh=(1, 4), cfg=dict(SSM_EVAL_F32, **bf16),
                       loss=dict(tokens=loss_tokens, cfg=dict(ssm_impl="pallas"))))
     train_layers = dict(n_layers=SSM["train_layers"])
     cases.append(dict(mesh=(1, 4), policy="opt", cfg=train_layers,
-                      train=dict(tokens=train_tokens, accum=SSM["accum"], steps=SSM["steps"],
-                                 host=())))
+                      train=dict(tokens=train_tokens, accum=SSM["accum"],
+                                 steps=SSM["steps"]["bf16"], host=())))
     t1 = time.perf_counter()
     res = run_ranks("repro_torch.launch.sharded:run", 4,
                     dict(device="cuda:0", arch=arch, seed=SEED, cases=cases),
@@ -3900,6 +3967,7 @@ def phase_sharded_ssm(free_before):
     out = dict(arch=arch, prompts=list(prompts.shape), loss_shape=list(SSM["loss"]),
                ticks=SSM["ticks"], seeded=SSM_SEEDED, train_batch=list(SSM["train"]),
                accum=SSM["accum"], steps=SSM["steps"], train_layers=SSM["train_layers"],
+               bf16_layers=SSM["bf16_layers"],
                reference_s=ref_s, ranks_s=ranks_s, k4_rank_shapes=k4,
                reference_losses=dict(f32_2_layers=ref["f32"]["loss"], bf16=ref["bf16"]["loss"]))
     fails = [f"(e) K4 at d_in {d}: {e['max_abs_err']} from its plain version"
@@ -3909,7 +3977,7 @@ def phase_sharded_ssm(free_before):
             continue
         ranks = [r[i] for r in res]
         ccfg = cfg.with_(**case["cfg"])
-        label = (f"{'bf16' if 'n_layers' not in case['cfg'] else 'f32'}_"
+        label = (f"{'f32' if 'compute_dtype' in case['cfg'] else 'bf16'}_"
                  f"{case['mesh'][0]}x{case['mesh'][1]}")
         out[label] = _ssm_serve_checks(ranks, case, ccfg, ref, label, fails)
     out["eval_f32"] = _ssm_eval_f32([r[f32_eval] for r in res], cfg, ref, fails)
@@ -3922,7 +3990,7 @@ def phase_sharded_ssm(free_before):
         c = cfg.with_(**case["cfg"])
         key = "bf16" if c.compute_dtype == "bfloat16" else "f32"
         label = f"train_{key}_{case['mesh'][0]}x{case['mesh'][1]}_{case.get('policy', 'baseline')}"
-        refs = _train_reference(c, train_tokens, None, SSM["steps"], SSM["accum"], cuda)
+        refs = _train_reference(c, train_tokens, None, SSM["steps"][key], SSM["accum"], cuda)
         out[label] = _ssm_train_checks(ranks, case, c, refs, label, fails)
         del refs
         _free()
@@ -3954,10 +4022,11 @@ def phase_sharded_ssm(free_before):
 # the one-rank gather's global capacity.  The one-rank references run
 # first, on the card, and are freed.  Depths by the script's time (PERF.md
 # §4: this phase took 178.7 s with (b) at 48 layers and (c) at 4): (b) at
-# 24 of 48 layers, (c) at 2.
+# 24 of 48 layers, (c) at 2; then (b) at 12 and 4 ticks, (a) 2 ticks; then
+# (b) at 6.
 MOE = dict(arch="moonshot-v1-16b-a3b", meshes=((1, 4), (2, 2)), prompts=2, prompt_len=512,
-           s_max=1024, loss=(2, 1024), ticks=dict(f32=4, bf16=8), train=(4, 1024), accum=2,
-           bf16_layers=24, opt_layers=2, limit=900)
+           s_max=1024, loss=(2, 1024), ticks=dict(f32=2, bf16=4), train=(4, 1024), accum=2,
+           bf16_layers=6, opt_layers=2, limit=900)
 # Gates, fixed before the first run.  (a) logits, losses and ticks within
 # MOE_F32_TOL of one rank; the train step's loss within MOE_TRAIN_TOL and
 # its grad norm within MOE_TRAIN_TOL of itself.  (b) the prefill's logits
@@ -4128,8 +4197,14 @@ def _moe_first_tokens(logits, ref, key):
     return dict(first_tokens=got.tolist(), first_tokens_one_rank=want.tolist(), near_tie_ok=ok)
 
 
-def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails):
-    """(a)/(b)/(c)/(d) of a prefill (and decode and loss) case → its report."""
+def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=None, k4=None,
+                      logits_tol=MOE_F32_TOL):
+    """(a)/(b)/(c)/(d) of a prefill (and decode and loss) case → its report.
+    ``tag``: the gate's letter in a failure (by ``key`` where None); ``k2``:
+    K2's launches a prefill or eval should count (default one a layer);
+    ``k4``: K4's in an eval (then none in a prefill; default unchecked);
+    ``logits_tol``: the float32 prefill logits' bound (the loss's and the
+    ticks' stays MOE_F32_TOL)."""
     import torch
 
     from repro_torch.distributed.sharding import decode_rules
@@ -4158,12 +4233,17 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails):
                params_allocated=[r["params_allocated"] for r in ranks],
                max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
                finite=bool(torch.isfinite(logits).all()))
+    k2 = ccfg.n_layers if k2 is None else k2
     for s in steps:
         out[s] = dict(ms=[r[s]["ms"] for r in ranks], staging_s=[r[s]["staging_s"] for r in ranks],
-                      k2_launches=[r[s]["k2_launches"] for r in ranks])
-        if any(k != ccfg.n_layers for k in out[s]["k2_launches"]):
-            fails.append(f"(d) {label} {s}: K2 launched {out[s]['k2_launches']} times for "
-                         f"{ccfg.n_layers} layers")
+                      k2_launches=[r[s]["k2_launches"] for r in ranks],
+                      k4_launches=[r[s]["k4_launches"] for r in ranks])
+        if any(k != k2 for k in out[s]["k2_launches"]):
+            fails.append(f"(d) {label} {s}: K2 launched {out[s]['k2_launches']} times, not {k2}")
+        want_k4 = None if k4 is None else k4 if s == "loss" else 0
+        if want_k4 is not None and any(k != want_k4 for k in out[s]["k4_launches"]):
+            fails.append(f"(d) {label} {s}: K4 launched {out[s]['k4_launches']} times, not "
+                         f"{want_k4}")
     n_data, n_model = mesh["data"], mesh["model"]
     for s, tokens in (("prefill", "routing"), ("loss", "loss_routing")):
         if s in case and tokens in ref[key]:
@@ -4179,12 +4259,13 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails):
         out["loss"].update(losses=[r["loss"]["loss"] for r in ranks],
                            one_rank=ref[key]["loss"], aux=[r["loss"]["aux"] for r in ranks])
         out["finite"] &= all(np.isfinite(r["loss"]["loss"]) for r in ranks)
-    tag = "(a)" if key == "f32" else "(b)" if key == "bf16" else "(c)"
+    tag = tag or ("(a)" if key == "f32" else "(b)" if key == "bf16" else "(c)")
     if size == 4:
         out.update(logits_err=err(logits, ref[key]["logits"]), tolerance=MOE_F32_TOL,
+                   logits_tolerance=logits_tol,
                    loss_err=max((abs(r["loss"]["loss"] - ref[key]["loss"]) for r in ranks
                                  if "loss" in case), default=0.0))
-        if not (out["logits_err"] <= MOE_F32_TOL and out["loss_err"] <= MOE_F32_TOL):
+        if not (out["logits_err"] <= logits_tol and out["loss_err"] <= MOE_F32_TOL):
             fails.append(f"{tag} {label}: logits {out['logits_err']}, loss {out['loss_err']}")
     else:
         l32, l16 = ref[key]["logits_f32"], ref[key]["logits"]
@@ -4366,6 +4447,384 @@ def phase_sharded_moe(free_before):
     return out
 
 
+# -- phase 17 ------------------------------------------------------------------
+
+# jamba-v0.1-52b sharded over 4 ranks of the one card (``launch/sharded.py``;
+# gloo, host-staged, as phases 12–16): each slot of a period as its own
+# family on ranks (attention on the rank's heads, mamba on its ``d_inner``
+# channels, the MLP on its ``d_ff`` columns, MoE on its experts), one
+# slot's weights gathered at a time.  The one-rank references first, on the
+# card, then freed.  (a) one period (8 layers) in float32 on (1, 4) under
+# the baseline: the prefill of phase 6's first 2 prompts into caches of
+# HYBRID["s_max"], the loss of HYBRID["loss"] (routing recorded), 4 ticks
+# fed from the prefill's caches with one rank's greedy tokens; (b) one
+# period in bf16 on (1, 4): the prefill, the eval through K2 and K4, 4
+# ticks; (c) the same period in bf16 on (2, 2): the prefill and 2 ticks,
+# each slot's weights gathered over ``data`` (the ticks with the MoE
+# slots' expert stacks in place); (d) in the same case, two long_500k
+# ticks (batch 1, ``pos`` 524 286 and 524 287) on caches drawn from a
+# seed, every slot stationary; (e) one period on (1, 4) under ``opt`` at
+# capacity factor E / k = 8 (nothing drops on either side): a float32
+# prefill (the parameters as in (a)) and a bf16 one; (f) one bf16 period
+# on (1, 4), ``remat`` on: ``Model.loss`` under ``torch.autograd.grad``
+# (the ``"grad"`` entry: the loss and the whole grad norm, no optimizer
+# state) on 2 × 512.  No AdamW step: one period's is about 213 GB across
+# the ranks (PERF.md), so it waits for four cards; phases 14–16 run it,
+# the CPU tests hold the hybrid's train cells.  Cut for the script's time
+# (phase 17 took 125.8 s alone at first; PERF.md §4): (b) 16 → 8 layers
+# (the CPU tests hold two periods), its ticks 8 → 4, (c)'s ticks 4 → 2.
+HYBRID = dict(arch="jamba-v0.1-52b", prompts=2, prompt_len=512, s_max=1024, loss=(2, 1024),
+              ticks=dict(f32=4, bf16=4, gathered=2), layers=8,
+              long=dict(b=1, s_max=524_288, pos=524_286, ticks=2, seed=SEED + 53),
+              capacity_factor=8.0, limit=900)
+HYBRID_SERVE = dict(attn_impl="pallas", ssm_impl="pallas", remat=False)
+HYBRID_F32 = dict(param_dtype="float32", compute_dtype="float32")
+HYBRID_GRAD = dict(attn_impl="xla", ssm_impl="xla", remat=True)
+# Gates, fixed before the first run.  (a) logits, losses and ticks within
+# HYBRID_F32_TOL of one rank, routing (ids and kept entries) 100 % equal;
+# (b) phase 16 (b)'s bf16 rules: the loss no farther from float32 than
+# SHARDED_BF16_FACTOR × one rank's and within TRAIN_BF16_LOSS of it, the
+# first tokens equal or a near tie, the logits' ratio and the ticks
+# reported; (c) the same rules, and each rank's max_memory_allocated at
+# most HYBRID_RANK_BYTES, which a whole period's gather (12.8 GB more)
+# cannot meet; (d) each tick no farther from float32 than
+# SHARDED_BF16_FACTOR × one rank's, the greedy token equal or a near tie,
+# no ``layer`` gather among its ops; (e) the float32 prefill within
+# HYBRID_F32_TOL of one rank at the same capacity factor, routing 100 %
+# equal (the bf16 prefill's first tokens and routing reported); (f) the
+# loss within TRAIN_BF16_LOSS, the grad norm within HYBRID_GRAD_NORM of
+# itself; (g) every rank's ops equal to ``sharded_collectives``, K2 once a
+# period in every prefill and eval, K4 7 times a period in every eval and
+# never in a prefill.  Changed after the first run: the float32 prefill
+# logits of (a) and (e) are held to HYBRID_F32_LOGITS_TOL, the float32
+# sharded logits' bound of phases 13 and 15 (SHARDED_TOL).  They read
+# 8.27e-05 (max |logit| 6.14, median error 1.06e-05), and one process
+# summing only ``w_out``'s products as 4 blocks in order, as the ranks
+# do, moved one rank's own logits by 5.69e-05 (``dtbc``'s 3.61e-05, the
+# MLP's down 4.72e-05; PERF.md): a bound of 5e-05 sits under the noise of
+# any float32 reordering of this period's sums.  The losses and ticks keep
+# HYBRID_F32_TOL (9.5e-07 and 2.1e-05–2.7e-05).
+HYBRID_F32_TOL = 5e-5
+HYBRID_F32_LOGITS_TOL = SHARDED_TOL
+HYBRID_GRAD_NORM = 5e-3
+HYBRID_RANK_BYTES = 14e9
+
+
+def _hybrid_reckoning(cfg):
+    """The memory reckoning's elements (PERF.md): each slot kind's, a
+    period's, the embedding's and head's, and the bf16 bytes at one and
+    two periods, whole and a rank of four."""
+    import math
+
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+
+    defs = Model(cfg.with_(n_layers=cfg.attn_period)).defs()
+    n = lambda tree: sum(math.prod(p.shape) for _, p in flatten(tree))  # noqa: E731
+    kinds = {k: n(next(sl[k] for sl in defs["stack"].values() if k in sl))
+             for k in ("attn", "mamba", "mlp", "moe")}
+    period, rest = n(defs["stack"]), n({k: v for k, v in defs.items() if k != "stack"})
+    return dict(slot_kinds=kinds, period=period, embed_and_head=rest,
+                **{f"bf16_bytes_{p}_periods": 2 * (p * period + rest) for p in (1, 2)},
+                **{f"bf16_bytes_a_rank_{p}_periods": 2 * (p * period + rest) // 4
+                   for p in (1, 2)})
+
+
+def _hybrid_references(cfg, prompts, loss_tokens, long_tokens, dev):
+    """The one-rank model on the card from SEED's parameters at one period,
+    each leg's parameters freed before the next: (a) f32: the prefill's
+    logits and routing, HYBRID["ticks"]["f32"] greedy ticks, the loss and
+    its routing; (e) on the same parameters at the capacity factor, the
+    prefill's logits and routing; (b)/(c) bf16: the prefill, 4 ticks (the
+    first (c)'s) and the eval through K2 and K4, each also in float32
+    throughout; (d) on the same parameters, the long ticks on the whole
+    seeded caches and in float32 layer by layer; (e) the bf16 prefill at
+    the capacity factor (and in float32); (f) the loss and grad norm of the
+    prompts (``make_grad_step``)."""
+    import torch
+
+    from repro_torch.launch.sharded import seeded_caches
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    out = {}
+    cf = dict(capacity_factor=HYBRID["capacity_factor"])
+    tok = torch.as_tensor(prompts, device=dev).long()
+    legs = (("f32", dict(HYBRID_SERVE, **HYBRID_F32, n_layers=HYBRID["layers"])),
+            ("bf16", dict(HYBRID_SERVE, n_layers=HYBRID["layers"])))
+    for key, over in legs:
+        c = cfg.with_(**over)
+        model = Model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        with torch.no_grad():
+            with moe.recording() as rec:
+                logits, caches = model.prefill(params, {"tokens": tok}, HYBRID["s_max"])
+            routing = _moe_routing(rec)
+            fed, ticks, last = [], [], logits
+            for t in range(HYBRID["ticks"][key]):
+                fed.append(last.argmax(-1)[:, None])
+                last, caches = model.decode(params, fed[-1], prompts.shape[1] + t, caches)
+                ticks.append(last.float().cpu())
+            del caches
+            with moe.recording() as rec:
+                loss, _ = model.loss(params, {"tokens": torch.as_tensor(loss_tokens, device=dev)
+                                              .long()})
+        fed = torch.cat(fed, 1).cpu().numpy()
+        out[key] = dict(logits=logits.float().cpu(), fed=fed, ticks=torch.stack(ticks),
+                        routing=routing, loss=float(loss), loss_routing=_moe_routing(rec))
+        if key == "f32":
+            with torch.no_grad(), moe.recording() as rec:
+                logits, _ = Model(c.with_(**cf)).prefill(params, {"tokens": tok},
+                                                          prompts.shape[1])
+            out["opt_f32"] = dict(logits=logits.float().cpu(), routing=_moe_routing(rec))
+        else:
+            out[key].update(logits_f32=_prefill_logits_f32(c, params, prompts, dev).cpu(),
+                            ticks_f32=_ticks_f32(c, params, prompts, fed, dev).cpu(),
+                            loss_f32=_loss_f32(c, params, loss_tokens, dev))
+            out["gathered"] = out[key]      # (c) runs its first HYBRID["ticks"]["gathered"]
+            spec = HYBRID["long"]
+            with torch.no_grad():
+                caches = seeded_caches(model, spec["b"], spec["s_max"], spec["seed"], dev)
+                long = []
+                for t in range(spec["ticks"]):
+                    lg, caches = model.decode(params, torch.as_tensor(
+                        long_tokens[:, t:t + 1], device=dev).long(), spec["pos"] + t, caches)
+                    long.append(lg.float().cpu())
+                del caches
+            out["long"] = dict(ticks=torch.stack(long),
+                               ticks_f32=_seeded_ticks_f32(c, params, long_tokens, spec,
+                                                           dev).cpu())
+            c8 = c.with_(**cf)
+            with torch.no_grad(), moe.recording() as rec:
+                logits, _ = Model(c8).prefill(params, {"tokens": tok}, prompts.shape[1])
+            out["opt"] = dict(logits=logits.float().cpu(), routing=_moe_routing(rec),
+                              logits_f32=_prefill_logits_f32(c8, params, prompts, dev).cpu())
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            grad = make_grad_step(Model(c.with_(**HYBRID_GRAD)))(params, {"tokens": tok})
+            out["grad"] = dict(loss=float(grad["loss"]), grad_norm=float(grad["grad_norm"]),
+                               seconds=time.perf_counter() - t0,
+                               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+            del grad
+        del params, model
+        _free()
+    return out
+
+
+def _hybrid_long_checks(ranks, case, ccfg, ref, fails):
+    """(d)/(g) of the long ticks (the case's second decode entry)."""
+    import torch
+
+    from repro_torch.distributed.sharding import decode_rules
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharded import assemble_tick, sharded_collectives
+
+    err = lambda a, c: float((a - c).abs().max())  # noqa: E731
+    spec, mesh = HYBRID["long"], dict(zip(("data", "model"), case["mesh"]))
+    want = sharded_collectives(ccfg, mesh, decode_rules(Mesh(tuple(mesh), tuple(mesh.values()))),
+                               spec["b"], 1, 2, 2, "decode", s_max=spec["s_max"])
+    entries = [r["decode"][1] for r in ranks]
+    if any(ops != want for e in entries for ops in e["ops"]):
+        fails.append("(g) long ticks: a rank's ops differ from the formula")
+    got = [assemble_tick(ranks, 1, t, spec["b"], ccfg.vocab_size) for t in range(spec["ticks"])]
+    one, f32 = ref["long"]["ticks"], ref["long"]["ticks_f32"]
+    rep = dict(pos=entries[0]["pos"], s_max=spec["s_max"], batch=spec["b"],
+               stationary=[e["stationary"] for e in entries], kv=[e["kv"] for e in entries],
+               d_inner=[e["di"] for e in entries], ms=[e["ms"] for e in entries],
+               staging_s=[e["staging_s"] for e in entries],
+               max_memory_allocated=[e["max_memory_allocated"] for e in entries],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               layer_gathers=sum(op[3] == "layer" for op in want),
+               ranks_vs_f32=[err(g, w) for g, w in zip(got, f32)],
+               one_rank_vs_f32=[err(o, w) for o, w in zip(one, f32)],
+               ranks_vs_one_rank=[err(g, o) for g, o in zip(got, one)],
+               bound_factor=SHARDED_BF16_FACTOR,
+               finite=all(bool(torch.isfinite(g).all()) for g in got))
+    near = []
+    for g, o, w in zip(got, one, f32):
+        a, b = int(g.argmax(-1)[0]), int(o.argmax(-1)[0])
+        noise = float((o - w).abs().max() + (g - w).abs().max())
+        near.append(a == b or abs(float(w[0, a] - w[0, b])) <= noise)
+    rep.update(greedy=[int(g.argmax(-1)[0]) for g in got],
+               greedy_one_rank=[int(o.argmax(-1)[0]) for o in one], near_tie_ok=near)
+    if any(a > SHARDED_BF16_FACTOR * o for a, o in zip(rep["ranks_vs_f32"],
+                                                       rep["one_rank_vs_f32"])):
+        fails.append(f"(d) long ticks: {rep['ranks_vs_f32']} from float32 against one rank's "
+                     f"{rep['one_rank_vs_f32']}")
+    if not (all(near) and rep["finite"] and all(rep["stationary"])
+            and rep["layer_gathers"] == 0):
+        fails.append(f"(d) long ticks: greedy {rep['greedy']} against {rep['greedy_one_rank']}, "
+                     f"finite {rep['finite']}, stationary {rep['stationary']}, "
+                     f"{rep['layer_gathers']} layer gathers")
+    return rep
+
+
+def _hybrid_grad_checks(ranks, case, c, ref, fails):
+    """(f)/(g) of the gradient case against one rank's."""
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.sharded import sharded_collectives
+
+    r0 = ranks[0]
+    want = sharded_collectives(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
+                               *case["grad"]["tokens"].shape, 2, 2, "train", 1,
+                               r0["param_rules"])
+    if any(r["grad"]["ops"] != want for r in ranks):
+        fails.append("(g) grad: a rank's ops differ from the formula")
+    one = ref["grad"]
+    out = dict(rules=r0["rules"], losses=[r["grad"]["loss"] for r in ranks],
+               grad_norms=[r["grad"]["grad_norm"] for r in ranks], one_rank=one,
+               loss_err=max(abs(r["grad"]["loss"] - one["loss"]) for r in ranks),
+               grad_norm_rel_err=max(abs(r["grad"]["grad_norm"] - one["grad_norm"])
+                                     / one["grad_norm"] for r in ranks),
+               tolerance=dict(loss=TRAIN_BF16_LOSS, grad_norm=HYBRID_GRAD_NORM),
+               ms=[r["grad"]["ms"] for r in ranks],
+               staging_s=[r["grad"]["staging_s"] for r in ranks],
+               k2_launches=[r["grad"]["k2_launches"] for r in ranks],
+               k4_launches=[r["grad"]["k4_launches"] for r in ranks],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               params_allocated=[r["params_allocated"] for r in ranks],
+               max_memory_allocated=[r["grad"]["max_memory_allocated"] for r in ranks])
+    finite = all(np.isfinite([r["grad"]["loss"], r["grad"]["grad_norm"]]).all() for r in ranks)
+    if not (out["loss_err"] <= TRAIN_BF16_LOSS and out["grad_norm_rel_err"] <= HYBRID_GRAD_NORM
+            and finite):
+        fails.append(f"(f) grad: loss {out['loss_err']}, grad norm {out['grad_norm_rel_err']} "
+                     "against one rank")
+    return out
+
+
+def _routing_all_equal(rep):
+    """Whether every rank's routing of every recorded step is one rank's:
+    the same expert ids and the same kept entries."""
+    return all(a["ids_equal"] == 1.0 and a["kept_equal"] == 1.0
+               for s in ("prefill", "loss") if s in rep for a in rep[s].get("routing", []))
+
+
+def _hybrid_cases(prompts, loss_tokens, long_tokens, ref):
+    """Phase 17's rank cases → [(reference key, gate letter, case)]."""
+    one = dict(n_layers=HYBRID["layers"])
+    f32 = dict(HYBRID_SERVE, **HYBRID_F32, **one)
+    cf = dict(capacity_factor=HYBRID["capacity_factor"])
+    long = dict(tokens=long_tokens, seed=HYBRID["long"]["seed"], s_max=HYBRID["long"]["s_max"],
+                pos=HYBRID["long"]["pos"])
+    serve = lambda key: dict(  # noqa: E731
+        prefill=dict(tokens=prompts, s_max=HYBRID["s_max"], routing=True),
+        decode=[dict(tokens=ref[key]["fed"])])
+    opt_prefill = dict(tokens=prompts, s_max=prompts.shape[1], routing=True)
+    return [
+        ("f32", "(a)", dict(mesh=(1, 4), cfg=f32, **serve("f32"),
+                            loss=dict(tokens=loss_tokens, routing=True))),
+        ("opt_f32", "(e)", dict(mesh=(1, 4), policy="opt", cfg=dict(f32, **cf),
+                                prefill=opt_prefill)),
+        ("bf16", "(b)", dict(mesh=(1, 4), cfg=dict(HYBRID_SERVE, **one), **serve("bf16"),
+                             loss=dict(tokens=loss_tokens, routing=True))),
+        ("gathered", "(c)", dict(mesh=(2, 2), cfg=dict(HYBRID_SERVE, **one),
+                                 prefill=serve("bf16")["prefill"],
+                                 decode=[dict(tokens=ref["bf16"]["fed"][
+                                     :, :HYBRID["ticks"]["gathered"]]), long])),
+        ("opt", "(e)", dict(mesh=(1, 4), policy="opt", cfg=dict(HYBRID_SERVE, **one, **cf),
+                            prefill=opt_prefill)),
+        ("grad", "(f)", dict(mesh=(1, 4), cfg=dict(HYBRID_GRAD, **one),
+                             grad=dict(tokens=prompts))),
+    ]
+
+
+def _hybrid_checks(cfg, cases, res, ref, out):
+    """Phase 17's gates over the ranks' results ``res`` of ``cases``; each
+    case's report goes into ``out`` → the failures."""
+    from repro_torch.launch.sharded import assemble_logits
+
+    fails = []
+    for i, (key, tag, case) in enumerate(cases):
+        ranks = [r[i] for r in res]
+        c = cfg.with_(**case["cfg"])
+        policy = case.get("policy", "baseline")
+        if policy == "opt":
+            c = c.with_(moe_impl="a2a")
+        label = f"{key}_{case['mesh'][0]}x{case['mesh'][1]}_{policy}"
+        if "grad" in case:
+            out[label] = _hybrid_grad_checks(ranks, case, c, ref, fails)
+            continue
+        n_periods = c.n_layers // c.attn_period
+        local = []
+        rep = _moe_serve_checks(ranks, case, c, ref, key, label, local, tag, k2=n_periods,
+                                k4=(c.attn_period - 1) * n_periods,
+                                logits_tol=HYBRID_F32_LOGITS_TOL)
+        # (e)'s bf16 prefill is reported; its ops and launches are gated
+        fails += [f.replace("(d) ", "(g) ", 1) for f in local
+                  if key != "opt" or f.startswith("(d) ")]
+        if key in ("f32", "opt_f32"):
+            gap = (assemble_logits(ranks, *ref[key]["logits"].shape) - ref[key]["logits"]).abs()
+            rep.update(logits_err_median=float(gap.median()),
+                       max_abs_logit=float(ref[key]["logits"].abs().max()))
+            if not _routing_all_equal(rep):
+                fails.append(f"{tag} {label}: routing not one rank's: "
+                             f"{[rep[s]['routing'] for s in ('prefill', 'loss') if s in rep]}")
+        if key == "gathered":
+            rep["long"] = _hybrid_long_checks(ranks, case, c, ref, fails)
+            if any(r["max_memory_allocated"] > HYBRID_RANK_BYTES for r in ranks):
+                fails.append(f"(c) {label}: max_memory_allocated "
+                             f"{[r['max_memory_allocated'] for r in ranks]} over "
+                             f"{HYBRID_RANK_BYTES}")
+        out[label] = rep
+    return fails
+
+
+def phase_sharded_hybrid(free_before):
+    """Phase 17: jamba-v0.1-52b sharded over 4 ranks of one card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.serve import make_requests
+
+    t0 = time.perf_counter()
+    released = [_card_released(free_before)]
+    cuda = torch.device("cuda", 0)
+    # cuBLAS keeps a workspace for each thread's handle (the main thread's,
+    # the autograd engine's device thread's) as long as the process lives.
+    # Taken here, before the references' tens of GB, they cannot pin a
+    # large cached block that the ranks then miss (64 MiB pinned 3.5–7 GiB).
+    for dtype in (torch.float32, torch.bfloat16):
+        w = torch.ones(8, 8, dtype=dtype, device=cuda, requires_grad=True)
+        (w @ w).sum().backward()
+    del w
+    arch = HYBRID["arch"]
+    cfg = get_config(arch)
+    rng = np.random.default_rng(SEED + 17)
+    prompts = np.stack([r.prompt for r in make_requests(cfg, HYBRID["prompts"],
+                                                        HYBRID["prompt_len"], 1, SEED)])
+    loss_tokens = rng.integers(0, cfg.vocab_size, HYBRID["loss"])
+    long_tokens = rng.integers(0, cfg.vocab_size, (HYBRID["long"]["b"], HYBRID["long"]["ticks"]))
+    ref = _hybrid_references(cfg, prompts, loss_tokens, long_tokens, cuda)
+    ref_s = time.perf_counter() - t0
+    _free()
+    released.append(_card_released(free_before))
+
+    cases = _hybrid_cases(prompts, loss_tokens, long_tokens, ref)
+    t1 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run", 4,
+                    dict(device="cuda:0", arch=arch, seed=SEED, cases=[c for *_, c in cases]),
+                    timeout_s=HYBRID["limit"],
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t1
+    released.append(_card_released(free_before))
+
+    out = dict(arch=arch, config=HYBRID, prompts=list(prompts.shape), reference_s=ref_s,
+               ranks_s=ranks_s, reckoning=_hybrid_reckoning(cfg),
+               reference_losses=dict(f32=ref["f32"]["loss"], bf16=ref["bf16"]["loss"],
+                                     bf16_float32=ref["bf16"]["loss_f32"]),
+               reference_grad=ref["grad"])
+    fails = _hybrid_checks(cfg, cases, res, ref, out)
+    out["released_s"] = released
+    out["phase_s"] = time.perf_counter() - t0
+    log("sharded_hybrid", **out)
+    if fails:
+        raise AssertionError(f"phase 17: {fails}")
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -4441,25 +4900,41 @@ def main() -> int:
         phase_device()
         phase_sharded_moe(torch.cuda.mem_get_info()[0])
         return 0
+    if sys.argv[1:] == ["--sharded-hybrid"]:
+        phase_device()
+        phase_sharded_hybrid(torch.cuda.mem_get_info()[0])
+        return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded "
-                         "| --sharded-ssm | --sharded-moe]")
-    name, smi = phase_device()
-    timing = phase_kernels()
-    main_cuda = phase_main_path()
-    fail_cuda = phase_failure(timing)
-    attn = phase_attention()
-    serve = phase_serve()
-    train = phase_train()
-    sched = phase_scheduler()
-    models = phase_models()
-    trainer = phase_trainer()
-    phase_cost()
-    expert = phase_expert()
-    sharded = phase_sharded(expert["free_bytes"])
-    sharded_train = phase_sharded_train(expert["free_bytes"])
-    sharded_ssm = phase_sharded_ssm(expert["free_bytes"])
-    sharded_moe = phase_sharded_moe(expert["free_bytes"])
+                         "| --sharded-ssm | --sharded-moe | --sharded-hybrid]")
+    wall = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        wall[phase.__name__] = time.perf_counter() - t0
+        return out
+
+    t_start = time.perf_counter()
+    name, smi = timed(phase_device)
+    timing = timed(phase_kernels)
+    main_cuda = timed(phase_main_path)
+    fail_cuda = timed(phase_failure, timing)
+    attn = timed(phase_attention)
+    serve = timed(phase_serve)
+    train = timed(phase_train)
+    sched = timed(phase_scheduler)
+    models = timed(phase_models)
+    trainer = timed(phase_trainer)
+    timed(phase_cost)
+    expert = timed(phase_expert)
+    free = expert["free_bytes"]
+    sharded = timed(phase_sharded, free)
+    sharded_train = timed(phase_sharded_train, free)
+    sharded_ssm = timed(phase_sharded_ssm, free)
+    sharded_moe = timed(phase_sharded_moe, free)
+    sharded_hybrid = timed(phase_sharded_hybrid, free)
+    log("wall", phases_s=wall, total_s=time.perf_counter() - t_start)
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
         "route": "cuda",
@@ -4498,6 +4973,8 @@ def main() -> int:
                         launches_sharded_train_eval=sharded_train[
                             "bf16_2x2_baseline"]["k2_launches"][0],
                         launches_sharded_moe_serve_path=sharded_moe[
+                            "bf16_1x4_baseline"]["prefill"]["k2_launches"][0],
+                        launches_sharded_hybrid_serve_path=sharded_hybrid[
                             "bf16_1x4_baseline"]["prefill"]["k2_launches"][0]),
         _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"],
                          launches_sharded_decode_path=sharded["bf16_1x4"]["decode"]["ticks"][
@@ -4507,12 +4984,19 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:69",
         "launches": train["launches"],
-        "launches_note": "on the eval path (16 layers); the train step takes the "
+        "launches_note": f"on the eval path ({TRAIN['n_layers']} layers); the train "
+                         "step takes the "
                          "plain scan, as the reference's must (K4 has no backward)",
         "launches_hybrid_eval_path": models["hybrid"]["eval"]["launches"]["mamba_scan"],
         "launches_sharded_eval_path": sharded_ssm["bf16_1x4"]["k4_launches"],
-        "launches_sharded_note": "on each of the 4 ranks of phase 15's bf16 eval (64 layers, "
-                                 "d_in 2 048 a rank); 0 in its prefills, ticks and train steps",
+        "launches_sharded_note": f"on each of the 4 ranks of phase 15's bf16 eval "
+                                 f"({SSM['bf16_layers']} of 64 layers, d_in 2 048 a rank); "
+                                 "0 in its prefills, ticks and train steps",
+        "launches_sharded_hybrid_eval_path": sharded_hybrid[
+            "bf16_1x4_baseline"]["loss"]["k4_launches"][0],
+        "launches_sharded_hybrid_note": "on each of the 4 ranks of phase 17 (b)'s bf16 eval "
+                                        "(one period: 7 mamba slots, d_in 2 048 a rank); 0 in "
+                                        "its prefills and ticks",
         "sharded_rank_shapes": {str(d): {k: e[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                             "bound_ms", "bound_by")}
                                 for d, e in sharded_ssm["k4_rank_shapes"].items()},

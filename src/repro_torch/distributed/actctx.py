@@ -11,7 +11,7 @@ that resolves on a larger mesh raises.
 
 On a rank mesh (``launch/mesh.py::_make_mesh``) each rank holds its block
 of every tensor, and the layers move the blocks themselves.  Two readers
-act on the context there.  The dense, MoE and SSM models
+act on the context there.  The dense, MoE, SSM and hybrid models
 (``models/model.py``) take their sharded path under the rules' layout of
 the residual stream
 (:func:`rank_layout`: the batch over the rules' ``batch`` axes, the
@@ -139,8 +139,8 @@ def constrain(
 
 @dataclass(frozen=True)
 class RankLayout:
-    """Where a dense, MoE or SSM model's tensors lie on the ranks of a rank
-    mesh.
+    """Where a dense, MoE, SSM or hybrid model's tensors lie on the ranks
+    of a rank mesh.
 
     The residual stream ``[B, S, d]`` is split along the batch over the
     mesh axes ``batch`` (``()``: every rank holds the whole batch) and,
@@ -158,15 +158,20 @@ class RankLayout:
     A decode layout (:func:`cache_layout`) also places the caches ``[L,
     B, s_max, nkv, hd]``: this rank's rows of the batch, as the residual
     stream's, and when ``kv_sharded`` its block of positions ``kv0:kv0 +
-    kv_loc`` over ``model`` (else every position), of every kv head; an
-    SSM's, the mamba states ``[L, B, k - 1, d_inner]`` and ``[L, B,
-    d_inner, N]``: its rows, and when ``di_sharded`` its block of channels
-    ``di0:di0 + di_loc`` over ``model``, the parameters' block (else
-    every channel).  A ``stationary`` decode layout keeps the parameters'
+    kv_loc`` over ``model`` (else every position), of every kv head; the
+    mamba states ``[L, B, k - 1, d_inner]`` and ``[L, B, d_inner, N]``:
+    its rows, and when ``di_sharded`` its block of channels ``di0:di0 +
+    di_loc`` over ``model``, the parameters' block (else every channel).
+    A hybrid's layout holds both blocks, one ``cache_layout`` call for
+    each kind.  A ``stationary`` decode layout keeps the parameters'
     ``d_model`` blocks in place, where the batch does not split over
-    ``data`` (:meth:`d_block`, :meth:`contract`, :meth:`whole_d`); an MoE
-    model's decode layout keeps its expert stacks' ``d_model`` blocks in
-    place (``experts_stationary``: :func:`keeps_expert_blocks`)."""
+    ``data`` (:meth:`d_block`, :meth:`contract`, :meth:`whole_d`): an
+    SSM's layers, or every slot of a hybrid period (attention, mamba, MLP
+    and MoE), sum their in-projections' partial products over ``data``
+    and gather their outputs' blocks over it.  An MoE or hybrid model's
+    decode layout keeps its expert stacks' ``d_model`` blocks in place
+    under the gather dispatch (``experts_stationary``:
+    :func:`keeps_expert_blocks`)."""
 
     mesh: Any
     batch: Tuple[str, ...]

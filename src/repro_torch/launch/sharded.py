@@ -1,5 +1,5 @@
-"""Sharded runs of a dense, MoE or SSM model over a rank mesh: what each
-rank runs for a train step, ``Model.prefill``, decode ticks and
+"""Sharded runs of a dense, MoE, SSM or hybrid model over a rank mesh:
+what each rank runs for a train step, ``Model.prefill``, decode ticks and
 ``Model.loss`` under the baseline, ``opt`` and small-DP policies, and the
 collectives they issue, by formula.  An MoE layer issues, under the
 baseline's gather dispatch, the sequence's gather (``moe/in``), the
@@ -9,7 +9,16 @@ the per-choice outputs' reduce-scatter (``moe/out``), a decode tick the
 rows' gather and the in-projections' float32 sum over ``data``
 (``moe/rows``, ``moe/experts``) and the output block's gather
 (``moe/data``); under ``opt`` the a2a body's (``moe_a2a/*``), each with
-its transpose in a train step.
+its transpose in a train step.  A hybrid period issues its slots' ops in
+slot order, each slot its own family's and its own gather over ``data``
+(``layer``, of that slot's leaves alone); its checkpointed recomputation
+re-issues every slot's up to the period's last saved tensor (all but the
+last slot's output collective).  A tick whose batch does not split over
+``data`` (an SSM or hybrid, ``stationary``) gathers no weights: each slot
+sums its in-projections' float32 partial products over ``data``
+(``attn/in``, ``mamba/in``, ``mlp/in``, ``moe/route`` with
+``moe/experts``) and gathers its output's block of ``d_model`` over it
+(``attn/data``, ``mamba/data``, ``mlp/data``, ``moe/data``).
 
 :func:`run` is a target of ``distributed/ranks.py::run_ranks``: every rank
 calls it with the same payload, and for each case of ``payload["cases"]``
@@ -21,7 +30,9 @@ rules (its ``rules`` with ``PARAM_RULES``, or the port's
 of the parameters by the parameter rules and runs, under
 ``activation_sharding(mesh, rules, param_rules)``, the steps the case
 names by its entries, in this order: ``"train": {"tokens": [B, S],
-"steps": n, "accum": a, "host": ...}``, ``"prefill": {"tokens": [B, S],
+"steps": n, "accum": a, "host": ...}``, ``"grad": {"tokens": [B, S]}``
+(the loss's gradient and its whole norm, no optimizer), ``"prefill":
+{"tokens": [B, S],
 "s_max": ... (default S), "reps": ..., "routing": ...}``, ``"decode":
 [entry, ...]`` (:func:`_decode`) and ``"loss": {"tokens": ...,
 "loss_mask": ... (optional), "cfg": ... (optional), "reps": ...,
@@ -60,8 +71,15 @@ from ..distributed.sharding import PARAM_RULES, decode_rules, rank_shard, spec_f
 from ..models.attention import rank_kv_heads
 from ..models.model import Model
 from ..models import moe
-from ..models.params import dtype_of, flatten, param_axes
-from ..models.transformer import _one_layer_defs, _slot_kind, _without, moe_kept_leaves
+from ..models.params import dtype_of, flatten, param_axes, unflatten
+from ..models.transformer import (
+    _attn_cache_defs,
+    _mixer_cache_defs,
+    _one_layer_defs,
+    _units,
+    _without,
+    moe_kept_leaves,
+)
 from .expert import Op, _host, _ops, _route, _sync
 from .hlo_analysis import counting_collectives
 from .mesh import Mesh, _make_mesh
@@ -81,7 +99,8 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     caches' length (default ``s``).
 
     Forward: the embedding's gather over ``data`` and its sum into the
-    residual stream's block; per layer, one gather of the layer's
+    residual stream's block; per layer (per slot of a hybrid period, the
+    period's ops times its periods), one gather of the layer's
     ``d_model`` blocks over ``data``, and for attention and the MLP each
     the sequence gathered over ``model`` and the row-parallel sum
     scattered back, for a mamba layer the sequence gathered, the float32
@@ -99,10 +118,12 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
 
     A train step runs, for each microbatch, the loss's forward and then
     its backward: each op's transpose (``distributed/collectives.py``) in
-    reverse order, where under ``cfg.remat`` each layer issues its forward
-    again up to its last row-parallel sum (the checkpoint's recomputation:
-    the layer's gather over ``data`` again) after that sum's transpose,
-    and its gradient's reduce-scatter comes last.  Then the sums of the leaves held
+    reverse order, where under ``cfg.remat`` each checkpointed unit (a
+    layer, or a hybrid period) issues its forward again up to its last
+    saved tensor (the checkpoint's recomputation: every slot's gather
+    over ``data`` again, but not the unit's last output collective, which
+    comes before it, transposed) and each gather's gradient
+    reduce-scatter comes after its slot's backward.  Then the sums of the leaves held
     alike along some axes (``actctx.sum_replicated``: ``model``, ``pod``,
     every axis under small-DP; float32 when ``accum > 1``), and the grad
     norm's all-reduce over the mesh (``actctx.whole_sq_sums``)."""
@@ -110,25 +131,26 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     param_rules = PARAM_RULES if param_rules is None else param_rules
     defs = Model(cfg).defs()
     s_max = s if s_max is None else s_max
+    n_units = _units(cfg)[0]
     if step == "decode":
-        embed, layer, head = _decode_sections(cfg, defs, mesh, rules, param_rules, b, s_max,
-                                              param_bytes, act_bytes)
-        return embed + layer * cfg.n_layers + head
+        embed, unit, head = _decode_sections(cfg, defs, mesh, rules, param_rules, b, s_max,
+                                             param_bytes, act_bytes)
+        return embed + unit * n_units + head
     if step != "train":
-        embed, layer, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b, s,
-                                            param_bytes, act_bytes, step, s_max)
-        return embed + layer * cfg.n_layers + head
-    embed, layer, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s,
-                                        param_bytes, act_bytes, "loss")
-    last = ("mlp/out", "mamba/out", "moe/out")    # the layer's output, after its last saved tensor
-    again = [(k, n, g, f"{path}/bwd") for k, n, g, path in layer
-             if path not in last and cfg.remat]
-    rest = [op for op in layer if op[3] not in last]
-    layer_bwd = ([_transpose(op) for op in layer if op[3] in last] + again
-                 + [_transpose(op) for op in reversed(_with_gradient(rest))])
-    backward = ([_transpose(op) for op in reversed(head)] + layer_bwd * cfg.n_layers
+        embed, unit, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b, s,
+                                           param_bytes, act_bytes, step, s_max)
+        return embed + unit * n_units + head
+    embed, unit, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s,
+                                       param_bytes, act_bytes, "loss")
+    # the unit's output collective, after its last saved tensor
+    tail = unit[-1:] if unit and unit[-1][3] in ("mlp/out", "mamba/out", "moe/out") else []
+    rest = unit[:len(unit) - len(tail)]
+    again = [(k, n, g, f"{path}/bwd") for k, n, g, path in rest] if cfg.remat else []
+    unit_bwd = ([_transpose(op) for op in tail] + again
+                + [_transpose(op) for op in reversed(_with_gradient(rest))])
+    backward = ([_transpose(op) for op in reversed(head)] + unit_bwd * n_units
                 + [_transpose(op) for op in reversed(embed)])
-    ops = (embed + layer * cfg.n_layers + head + backward) * accum
+    ops = (embed + unit * n_units + head + backward) * accum
     grad_bytes = 4 if accum > 1 else param_bytes
     leaves = [(p, actctx.replicated_axes(p, mesh, param_rules)) for _, p in flatten(defs)]
     sums: dict = {}
@@ -145,35 +167,40 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
 
 
 def _with_gradient(ops: List[Op]) -> List[Op]:
-    """The ops among a layer's forward ``ops`` whose results carry a
-    gradient: not the expert counts (``moe/counts``), nor the a2a body's
-    top-1 counts and token count (its second and third ``moe_a2a/aux``
-    sums; the first sums the probabilities)."""
+    """The ops among a unit's forward ``ops`` whose results carry a
+    gradient: not the expert counts (``moe/counts``), nor an a2a body's
+    top-1 counts and token count (the second and third of each run of
+    ``moe_a2a/aux`` sums; the first sums the probabilities)."""
     out, aux = [], 0
     for op in ops:
-        aux += op[3] == "moe_a2a/aux"
-        if op[3] != "moe/counts" and not (op[3] == "moe_a2a/aux" and aux > 1):
+        aux = aux + 1 if op[3] == "moe_a2a/aux" else 0
+        if op[3] != "moe/counts" and aux < 2:
             out.append(op)
     return out
 
 
 def _moe_ops(cfg: ModelConfig, mesh, rules, param_rules, b: int, s: int, seq: bool,
-             batch, param_bytes: int, act_bytes: int, keep_d: bool = False) -> List[Op]:
+             batch, param_bytes: int, act_bytes: int, keep_d: bool = False,
+             stationary: bool = False) -> List[Op]:
     """An MoE layer's ops after its attention's: the a2a body's where it
     applies (``launch/expert.py::a2a_collectives`` without the
     reassembly; where the a2a layout is not the stream's, the stream's
     blocks gathered whole first and the reassembly kept,
-    ``moe._moe_block_a2a_ranks``), else the sharded gather dispatch's
-    (``moe._moe_block_ranks``): the sequence gathered over ``model``, the
-    router's columns gathered where the experts split, the balance
-    statistics' float32 sum and the per-expert counts' gather (int64) over
-    the batch's ranks, and the per-choice outputs reduce-scattered (summed
-    where the sequence is whole) where the experts or ``d_ff`` split.  ``keep_d`` (a decode
-    tick's ``experts_stationary``): the rows gathered over ``data`` first
-    (the sums and counts then over the other batch axes), the
-    in-projections' float32 partial products summed over ``data``, the
-    per-choice outputs on the rank's ``d_model`` block, which is gathered
-    over ``data`` last."""
+    ``moe._moe_block_a2a_ranks``; under ``stationary`` the normed rows'
+    ``d_model`` blocks gathered over ``data`` first), else the sharded
+    gather dispatch's (``moe._moe_block_ranks``): the sequence gathered
+    over ``model``, the router's columns gathered where the experts split,
+    the balance statistics' float32 sum and the per-expert counts' gather
+    (int64) over the batch's ranks, and the per-choice outputs
+    reduce-scattered (summed where the sequence is whole) where the
+    experts or ``d_ff`` split.  ``keep_d`` (a decode tick's
+    ``experts_stationary``): the rows gathered over ``data`` first (the
+    sums and counts then over the other batch axes), the in-projections'
+    float32 partial products summed over ``data``, the per-choice outputs
+    on the rank's ``d_model`` block, which is gathered over ``data`` last.
+    ``stationary`` (a tick whose batch does not split over ``data``): the
+    router's block of ``d_model`` gathered over ``model`` alone and its
+    float32 partial products summed over ``data`` (``moe/route``)."""
     from .expert import a2a_collectives
 
     n_model, n_data = mesh.shape.get("model", 1), mesh.shape.get("data", 1)
@@ -181,10 +208,13 @@ def _moe_ops(cfg: ModelConfig, mesh, rules, param_rules, b: int, s: int, seq: bo
     if moe.a2a_on_ranks(cfg, mesh):
         ops = a2a_collectives(cfg, dict(mesh.shape), rules, b, s, param_bytes, act_bytes)
         al = moe.a2a_layout(cfg, dict(mesh.shape), rules, b, s)
+        ins = ([("all-gather", b_loc * s * cfg.d_model * act_bytes, n_data, "moe_a2a/in")]
+               if stationary else [])
         if (al.dp, al.seq_sharded) == (tuple(batch), seq):
-            return [op for op in ops if op[3] != "moe_a2a/reassemble"]
-        ins = [("all-gather", b * s // (n_model if seq else 1) * cfg.d_model * act_bytes,
-                b // b_loc, "moe_a2a/in")] if b != b_loc else []
+            return ins + [op for op in ops if op[3] != "moe_a2a/reassemble"]
+        if b != b_loc:
+            ins.append(("all-gather", b * s // (n_model if seq else 1) * cfg.d_model * act_bytes,
+                        b // b_loc, "moe_a2a/in"))
         if seq:
             ins.append(("all-gather", b * s * cfg.d_model * act_bytes, n_model, "moe_a2a/in"))
         return ins + ops
@@ -200,7 +230,10 @@ def _moe_ops(cfg: ModelConfig, mesh, rules, param_rules, b: int, s: int, seq: bo
             batch = tuple(a for a in batch if a != "data")
     n_batch = math.prod(mesh.shape[a] for a in batch)
     if experts:
-        ops.append(("all-gather", d * e * param_bytes, n_model, "moe/router"))
+        ops.append(("all-gather", (d_out if stationary else d) * e * param_bytes, n_model,
+                    "moe/router"))
+    if stationary:
+        ops.append(("all-reduce", b_loc * s * e * 4, n_data, "moe/route"))
     if n_batch > 1:
         ops += [("all-reduce", (2 * e + 1) * 4, n_batch, "moe/aux"),
                 ("all-gather", n_batch * e * 8, n_batch, "moe/counts")]
@@ -218,13 +251,13 @@ def _moe_ops(cfg: ModelConfig, mesh, rules, param_rules, b: int, s: int, seq: bo
     return ops
 
 
-def _layer_defs(cfg: ModelConfig, mesh, keep_d: bool = False) -> dict:
-    """The leaves a layer's gather over ``data`` takes
+def _layer_defs(cfg: ModelConfig, mixer: str, ffn: str, mesh, keep_d: bool = False) -> dict:
+    """The leaves a layer's (or slot's) gather over ``data`` takes
     (``transformer.gather_layer``): all but the ``moe`` leaves it leaves
     in place (``transformer.moe_kept_leaves``; ``keep_d``: a decode
     tick's ``experts_stationary``)."""
-    defs = _one_layer_defs(cfg, *_slot_kind(cfg, 0))
-    kept = moe_kept_leaves(cfg, mesh, keep_d)
+    defs = _one_layer_defs(cfg, mixer, ffn)
+    kept = moe_kept_leaves(cfg, ffn, mesh, keep_d)
     return _without(defs, kept) if kept else defs
 
 
@@ -279,16 +312,19 @@ def _head_defs(cfg: ModelConfig, defs) -> dict:
 def _cache_op(cfg: ModelConfig, mesh, param_rules, b_loc: int, s_max: int,
               act_bytes: int) -> List[Op]:
     """The prefill's caches moved to the decode layout
-    (``Model._cache_blocks``)."""
+    (``Model._kv_blocks``): one op for every attention layer's k and v, none
+    for the mamba states."""
     n_model = mesh.shape.get("model", 1)
-    if cfg.family == "ssm" or not _split(param_rules, mesh, "heads", cfg.n_heads):
+    n_units, slots = _units(cfg)
+    n_attn = n_units * sum(mixer == "attn" for _, mixer, _ in slots)
+    if not n_attn or not _split(param_rules, mesh, "heads", cfg.n_heads):
         return []
     heads = cfg.n_kv_heads
     if _split(param_rules, mesh, "kv_heads", heads):
         heads //= n_model
-    k = Model(cfg).cache_defs(b_loc, s_max)["k"]
-    kv_split = (spec_for(k.shape, k.axes, mesh, decode_rules(mesh)) + (None,) * 3)[2] == "model"
-    nbytes = 2 * cfg.n_layers * b_loc * s_max * heads * cfg.resolved_head_dim * act_bytes
+    k = _attn_cache_defs(cfg, b_loc, s_max)["k"]
+    kv_split = (spec_for(k.shape, k.axes, mesh, decode_rules(mesh)) + (None,) * 2)[1] == "model"
+    nbytes = 2 * n_attn * b_loc * s_max * heads * cfg.resolved_head_dim * act_bytes
     if kv_split:
         return [("all-to-all", nbytes, n_model, "prefill/cache")]
     return [("all-gather", nbytes * n_model, n_model, "prefill/cache")]
@@ -306,85 +342,92 @@ def _dtbc(cfg: ModelConfig, mesh, param_rules, rows: int) -> List[Op]:
 
 def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s_max: int,
                      param_bytes: int, act_bytes: int):
-    """(the embedding's ops, one layer's, the head's and the greedy
-    pick's) of a decode tick (``attention._decode_attention_sharded``,
-    ``ssm.mamba_decode``); an SSM whose batch does not split over ``data``
-    gathers no weights (``actctx.keeps_d_blocks``): the embedding's and
-    each layer's output block of ``d_model`` gathered over ``data``, the
-    input projections' and the head's float32 partial sums over it."""
+    """(the embedding's ops, one unit's — a layer's, or a hybrid period's
+    slot by slot —, the head's and the greedy pick's) of a decode tick
+    (``attention._decode_attention_sharded``, ``ssm.mamba_decode``); an
+    SSM or hybrid whose batch does not split over ``data`` gathers no
+    weights (``actctx.keeps_d_blocks``): the embedding's and each slot's
+    output block of ``d_model`` gathered over ``data``, the in-projections'
+    and the head's float32 partial sums over it."""
     batch, _ = actctx.residual_axes(b, 1, cfg.d_model, mesh, rules)
-    n_model = mesh.shape.get("model", 1)
+    n_model, n_data = mesh.shape.get("model", 1), mesh.shape.get("data", 1)
     b_loc = b // math.prod(mesh.shape[a] for a in batch)
-    mixer, ffn = _slot_kind(cfg, 0)
-    # an SSM whose batch does not split over data keeps its d_model blocks
-    keep = mixer == "mamba" and actctx.keeps_d_blocks(
+    # an SSM or hybrid whose batch does not split over data keeps its d_model blocks
+    keep = cfg.family in ("ssm", "hybrid") and actctx.keeps_d_blocks(
         actctx.RankLayout(mesh, batch, False, b, 1, param_rules), cfg.d_model)
-    d = cfg.d_model // (mesh.shape.get("data", 1) if keep else 1)
+    d = cfg.d_model // (n_data if keep else 1)
+
+    def split(axis: str, n: int) -> bool:
+        return _split(param_rules, mesh, axis, n)
 
     def to_stream(axis: str, n: int, path: str, nbytes: int = act_bytes) -> List[Op]:
-        if not _split(param_rules, mesh, axis, n):
+        if not split(axis, n):
             return []
         return [("all-reduce", b_loc * d * nbytes, n_model, path)]
 
     def whole_d(path: str) -> List[Op]:
-        return [("all-gather", b_loc * cfg.d_model * act_bytes, mesh.shape["data"], path)]
+        return [("all-gather", b_loc * cfg.d_model * act_bytes, n_data, path)] if keep else []
+
+    def contract(width: int, path: str) -> List[Op]:
+        return [("all-reduce", b_loc * width * 4, n_data, path)] if keep else []
 
     def gather_params(tree: dict, path: str) -> List[Op]:
         return [] if keep else _gather_params(tree, path, mesh, param_rules, param_bytes)
 
     embed = (gather_params({"embed": defs["embed"]}, "embed")
-             + to_stream("vocab", cfg.vocab_size, "embed")
-             + (whole_d("embed/data") if keep else []))
-    keep_d = (ffn == "moe" and not moe.a2a_on_ranks(cfg, mesh)
+             + to_stream("vocab", cfg.vocab_size, "embed") + whole_d("embed/data"))
+    keep_d = (not moe.a2a_on_ranks(cfg, mesh)
               and actctx.keeps_expert_blocks(mesh, param_rules, cfg.d_model))
-    layer = gather_params(_layer_defs(cfg, mesh, keep_d), "layer")
-    if keep:
-        din = cfg.d_inner // (n_model if _split(param_rules, mesh, "d_inner", cfg.d_inner) else 1)
-        layer.append(("all-reduce", b_loc * 2 * din * 4, mesh.shape["data"], "mamba/in"))
-    if mixer == "mamba":
-        layer += (_dtbc(cfg, mesh, param_rules, b_loc)
-                  + to_stream("d_inner", cfg.d_inner, "mamba/out", 4)
-                  + (whole_d("mamba/data") if keep else []))
-    else:
-        nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        k = Model(cfg).cache_defs(b, s_max)["k"]
-        kv_split = (spec_for(k.shape, k.axes, mesh, rules) + (None,) * 3)[2] == "model"
-        heads = _split(param_rules, mesh, "heads", nq)
-        if heads:
-            width = nq + (2 * nkv if _split(param_rules, mesh, "kv_heads", nkv) else 0)
-            layer.append(("all-gather", b_loc * width * hd * act_bytes, n_model, "attn/qkv"))
-        if kv_split:
-            layer += [("all-reduce", b_loc * nq * 4, n_model, "attn/max"),
-                      ("all-reduce", b_loc * nq * 4, n_model, "attn/sum"),
-                      ("reduce-scatter", b_loc * nq // n_model * hd * 4, n_model, "attn/pv")
-                      if heads else ("all-reduce", b_loc * nq * hd * 4, n_model, "attn/pv")]
-        layer += to_stream("heads", nq, "attn/out")
-    if ffn == "mlp":
-        layer += to_stream("d_ff", cfg.d_ff, "mlp/out")
-    elif ffn == "moe":
-        layer += _moe_ops(cfg, mesh, rules, param_rules, b, 1, False, batch, param_bytes,
-                          act_bytes, keep_d)
-    v_loc = cfg.vocab_size // (n_model if _split(param_rules, mesh, "vocab", cfg.vocab_size)
-                               else 1)
-    head = ([("all-reduce", b_loc * v_loc * 4, mesh.shape["data"], "head")] if keep
+    unit = []
+    for _, mixer, ffn in _units(cfg)[1]:
+        unit += gather_params(_layer_defs(cfg, mixer, ffn, mesh, keep_d), "layer")
+        if mixer == "mamba":
+            din = cfg.d_inner // (n_model if split("d_inner", cfg.d_inner) else 1)
+            unit += (contract(2 * din, "mamba/in") + _dtbc(cfg, mesh, param_rules, b_loc)
+                     + to_stream("d_inner", cfg.d_inner, "mamba/out", 4) + whole_d("mamba/data"))
+        else:
+            nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+            k = _attn_cache_defs(cfg, b, s_max)["k"]
+            kv_split = (spec_for(k.shape, k.axes, mesh, rules) + (None,) * 2)[1] == "model"
+            heads, kv_heads = split("heads", nq), split("kv_heads", nkv)
+            unit += contract((nq // (n_model if heads else 1)
+                              + 2 * nkv // (n_model if kv_heads else 1)) * hd, "attn/in")
+            if heads:
+                width = nq + (2 * nkv if kv_heads else 0)
+                unit.append(("all-gather", b_loc * width * hd * act_bytes, n_model, "attn/qkv"))
+            if kv_split:
+                unit += [("all-reduce", b_loc * nq * 4, n_model, "attn/max"),
+                         ("all-reduce", b_loc * nq * 4, n_model, "attn/sum"),
+                         ("reduce-scatter", b_loc * nq // n_model * hd * 4, n_model, "attn/pv")
+                         if heads else ("all-reduce", b_loc * nq * hd * 4, n_model, "attn/pv")]
+            unit += to_stream("heads", nq, "attn/out") + whole_d("attn/data")
+        if ffn == "mlp":
+            f_loc = cfg.d_ff // (n_model if split("d_ff", cfg.d_ff) else 1)
+            unit += (contract(f_loc * (2 if cfg.mlp_kind == "swiglu" else 1), "mlp/in")
+                     + to_stream("d_ff", cfg.d_ff, "mlp/out") + whole_d("mlp/data"))
+        elif ffn == "moe":
+            unit += _moe_ops(cfg, mesh, rules, param_rules, b, 1, False, batch, param_bytes,
+                             act_bytes, keep_d, keep)
+    v_loc = cfg.vocab_size // (n_model if split("vocab", cfg.vocab_size) else 1)
+    head = ([("all-reduce", b_loc * v_loc * 4, n_data, "head")] if keep
             else gather_params(_head_defs(cfg, defs), "head"))
     if v_loc != cfg.vocab_size:
         head.append(("all-gather", n_model * b_loc * 2 * 8, n_model, "decode/greedy"))
-    return embed, layer, head
+    return embed, unit, head
 
 
 def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: int,
                    param_bytes: int, act_bytes: int, step: str, s_max: int = 0):
-    """(the embedding's ops, one layer's, the head's and the loss's) of a
-    forward pass (:func:`sharded_collectives`); a prefill's head section
-    ends with its caches' move to the decode layout."""
+    """(the embedding's ops, one unit's — a layer's, or a hybrid period's
+    slot by slot —, the head's and the loss's) of a forward pass
+    (:func:`sharded_collectives`); a prefill's head section ends with its
+    caches' move to the decode layout."""
     batch, seq_axis = actctx.residual_axes(b, s, cfg.d_model, mesh, rules)
     seq = seq_axis == "model"
     n_model = mesh.shape.get("model", 1)
     n_batch = math.prod(mesh.shape[a] for a in batch)
     b_loc, s_loc, d = b // n_batch, s // n_model if seq else s, cfg.d_model
     stream = b_loc * s * d * act_bytes
-    mixer, ffn = _slot_kind(cfg, 0)
 
     def gather_params(tree: dict, path: str) -> List[Op]:
         return _gather_params(tree, path, mesh, param_rules, param_bytes)
@@ -404,28 +447,30 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
 
     embed = (gather_params({"embed": defs["embed"]}, "embed")
              + to_stream("vocab", cfg.vocab_size, "embed"))
-    layer = gather_params(_layer_defs(cfg, mesh), "layer")
-    if mixer == "mamba":
-        layer += (gather_seq(stream, "mamba/in") + _dtbc(cfg, mesh, param_rules, b_loc * s)
-                  + to_stream("d_inner", cfg.d_inner, "mamba/out", 4))
-    else:
-        layer += gather_seq(stream, "attn/in") + to_stream("heads", cfg.n_heads, "attn/out")
-    if ffn == "mlp":
-        layer += gather_seq(stream, "mlp/in") + to_stream("d_ff", cfg.d_ff, "mlp/out")
-    elif ffn == "moe":
-        layer += _moe_ops(cfg, mesh, rules, param_rules, b, s, seq, batch, param_bytes,
-                          act_bytes)
+    unit = []
+    for _, mixer, ffn in _units(cfg)[1]:
+        unit += gather_params(_layer_defs(cfg, mixer, ffn, mesh), "layer")
+        if mixer == "mamba":
+            unit += (gather_seq(stream, "mamba/in") + _dtbc(cfg, mesh, param_rules, b_loc * s)
+                     + to_stream("d_inner", cfg.d_inner, "mamba/out", 4))
+        else:
+            unit += gather_seq(stream, "attn/in") + to_stream("heads", cfg.n_heads, "attn/out")
+        if ffn == "mlp":
+            unit += gather_seq(stream, "mlp/in") + to_stream("d_ff", cfg.d_ff, "mlp/out")
+        elif ffn == "moe":
+            unit += _moe_ops(cfg, mesh, rules, param_rules, b, s, seq, batch, param_bytes,
+                             act_bytes)
     head_params = gather_params(_head_defs(cfg, defs), "head")
     if step == "prefill":
         last = gather_seq(b_loc * n_model * d * act_bytes, "prefill/last")
         cache = _cache_op(cfg, mesh, param_rules, b_loc, s_max, act_bytes)
-        return embed, layer, last + head_params + cache
+        return embed, unit, last + head_params + cache
     head = gather_seq(stream, "loss/x") + head_params
     if split("vocab", cfg.vocab_size):
         head.append(("all-gather", n_model * 2 * b_loc * (s - 1) * 4, n_model, "loss/vocab"))
     if n_batch > 1:
         head.append(("all-reduce", 2 * 4, n_batch, "loss/mean"))
-    return embed, layer, head
+    return embed, unit, head
 
 
 def _params(case: dict, mesh, model: Model, device, param_rules):
@@ -504,6 +549,27 @@ def _train(model: Model, params, entry: dict, device, carry: dict):
     return out, params
 
 
+def _grad(model: Model, params, entry: dict, device, carry: dict):
+    """The loss's gradient of the whole batch ``tokens`` and its whole norm
+    (``launch/steps.py::make_grad_step``: the train step's backward and
+    sums, no optimizer state) → (``loss``, ``grad_norm``, ``ops``, ``ms``,
+    launches; on the card ``max_memory_allocated`` since it began)."""
+    from .steps import make_grad_step
+
+    batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _launches(reset=True)
+    before = dict(staging)
+    with counting_collectives() as report:
+        metrics, ms = _timed(lambda: make_grad_step(model)(params, batch), device)
+    out = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+               ops=_ops(report), ms=ms, staging_s=_staging_since(before), **_launches())
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    return out, params
+
+
 def _cols(lay, v_loc: int, cfg: ModelConfig):
     """The vocabulary columns of this rank's ``v_loc`` logits."""
     v0 = lay.mi * v_loc if v_loc != cfg.vocab_size else 0
@@ -534,15 +600,17 @@ def _prefill(model: Model, params, entry: dict, device, carry: dict):
 
 def cache_slab(cfg: ModelConfig, b: int, s_max: int, seed: int, layer: int, which: str,
                device) -> torch.Tensor:
-    """Layer ``layer``'s whole ``which`` cache of a uniform stack (``"k"``
-    or ``"v"``, ``[b, s_max, nkv, hd]``; an SSM's ``"conv"``, ``[b, k - 1,
-    d_inner]``, or ``"h"``, ``[b, d_inner, N]``), float32 standard normal,
-    drawn on ``device`` from ``(seed, layer, which)`` alone: every rank,
-    and the one-rank model, draw the same slab and keep what they hold of
-    it."""
+    """Layer ``layer``'s whole ``which`` cache (``"k"`` or ``"v"``, ``[b,
+    s_max, nkv, hd]``; a mamba layer's ``"conv"``, ``[b, k - 1, d_inner]``,
+    or ``"h"``, ``[b, d_inner, N]``), float32 standard normal, drawn on
+    ``device`` from ``(seed, layer, which)`` alone: every rank, and the
+    one-rank model, draw the same slab and keep what they hold of it.
+    ``layer`` is the absolute layer index (a hybrid's period times its
+    length plus the slot)."""
     gen = torch.Generator(device=device).manual_seed(
         (seed * 100_003 + layer) * 2 + {"k": 0, "v": 1, "conv": 0, "h": 1}[which])
-    shape = Model(cfg).cache_defs(b, s_max)[which].shape[1:]
+    shape = _mixer_cache_defs(cfg, "attn" if which in ("k", "v") else "mamba", b,
+                              s_max)[which].shape
     return torch.randn(shape, generator=gen, device=device)
 
 
@@ -552,28 +620,40 @@ def cache_dtype(cfg: ModelConfig, decl) -> torch.dtype:
     return torch.float32 if "ssm_state" in decl.axes else dtype_of(cfg.compute_dtype)
 
 
+def cache_layers(cfg: ModelConfig, path) -> List[int]:
+    """The absolute layer index of each entry along a cache leaf's leading
+    axis (``path``: the leaf's path in the cache tree; a hybrid's
+    ``("slot{s}", leaf)``)."""
+    n_units, slots = _units(cfg)
+    if path[0].startswith("slot"):
+        return [u * len(slots) + int(path[0][len("slot"):]) for u in range(n_units)]
+    return list(range(n_units))
+
+
 def seeded_caches(model: Model, b: int, s_max: int, seed: int, device, mesh=None,
                   rules=None):
     """Caches of ``b`` rows (and ``s_max`` positions) from :func:`cache_slab`
     in their dtypes (:func:`cache_dtype`): whole, or this rank's blocks on
     ``mesh`` under ``rules`` (``spec_for`` of the cache leaves), one
-    layer's slab on the device at a time."""
+    layer's slab on the device at a time, a hybrid's slot by slot."""
     from ..distributed.sharding import block_index
 
-    cfg, out = model.cfg, {}
-    for which, decl in model.cache_defs(b, s_max).items():
+    cfg, paths, leaves = model.cfg, [], []
+    for path, decl in flatten(model.cache_defs(b, s_max)):
         index = (slice(None),) * len(decl.shape)
         if mesh is not None:
             index = block_index(decl.shape, spec_for(decl.shape, decl.axes, mesh, rules),
                                 mesh.shape, mesh.coords)
         shape = [len(range(*sl.indices(n))) for sl, n in zip(index, decl.shape)]
         dtype = cache_dtype(cfg, decl)
-        out[which] = torch.empty(shape, dtype=dtype, device=device)
-        for layer in range(cfg.n_layers):
-            slab = cache_slab(cfg, b, s_max, seed, layer, which, device)
-            out[which][layer] = slab[index[1:]].to(dtype)
+        leaf = torch.empty(shape, dtype=dtype, device=device)
+        for i, layer in enumerate(cache_layers(cfg, path)):
+            slab = cache_slab(cfg, b, s_max, seed, layer, path[-1], device)
+            leaf[i] = slab[index[1:]].to(dtype)
             del slab
-    return out
+        paths.append(path)
+        leaves.append(leaf)
+    return unflatten(paths, leaves)
 
 
 def _greedy(logits: torch.Tensor, lay, cfg: ModelConfig) -> torch.Tensor:
@@ -597,16 +677,18 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
     time (teacher-forced), from position ``pos``, into caches that are the
     prefill's (none of the keys below; ``pos`` the prompt's length, then
     where the last such entry stopped), the whole ``caches`` given (numpy
-    ``{"k", "v"}`` ``[L, B, s_max, nkv, hd]``, or an SSM's ``{"conv",
-    "h"}``; each rank keeps its blocks) or drawn from ``seed`` at ``s_max``
+    ``{"k", "v"}`` ``[L, B, s_max, nkv, hd]``, an SSM's ``{"conv",
+    "h"}``, or a hybrid's tree of both under ``"slot{s}"``; each rank keeps
+    its blocks) or drawn from ``seed`` at ``s_max``
     (:func:`seeded_caches`); ``pos`` given with either.  ``host_caches``:
     also return host copies of this rank's blocks after the last tick.  →
     per entry: each tick's logits block (host), the greedy tokens of this
     rank's rows (:func:`_greedy`), ``ops``, ``ms`` and ``pos``; ``rows``,
     ``cols``, ``kv`` (this rank's positions; an SSM's block of
-    ``d_inner``), ``k3_launches`` (the decode kernel's, over the entry's
-    ticks) and, on the card, ``max_memory_allocated`` since the entry
-    began."""
+    ``d_inner``), ``di`` (its block of ``d_inner``), ``stationary`` (the
+    layout keeps every ``d_model`` block in place), ``k3_launches`` (the
+    decode kernel's, over the entry's ticks) and, on the card,
+    ``max_memory_allocated`` since the entry began."""
     from ..kernels import decode_attention
 
     mesh, param_rules, rules = carry["mesh"], carry["param_rules"], carry["decode_rules"]
@@ -621,11 +703,15 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
                 from ..convert import shard_params
 
                 given = entry["caches"]
-                s_max, pos = given["k"].shape[2] if "k" in given else 0, entry["pos"]
-                defs = model.cache_defs(b, s_max)
-                blocks = shard_params(given, param_axes(defs), mesh, mesh.coords, rules)
-                caches = {k: torch.as_tensor(v).to(device, cache_dtype(cfg, defs[k]))
-                          .contiguous() for k, v in blocks.items()}
+                s_max = next((v.shape[2] for p, v in flatten(given) if p[-1] == "k"), 0)
+                pos, defs = entry["pos"], model.cache_defs(b, s_max)
+                blocks = flatten(shard_params(given, param_axes(defs), mesh, mesh.coords, rules))
+                decls = dict(flatten(defs))
+                # a copy: a block may be a view of the given arrays, which the
+                # ticks would write (a later entry may hold the same arrays)
+                caches = unflatten(*zip(*[
+                    (p, torch.tensor(v, dtype=cache_dtype(cfg, decls[p]), device=device))
+                    for p, v in blocks]))
             elif "seed" in entry:
                 s_max, pos = entry["s_max"], entry["pos"]
                 caches = seeded_caches(model, b, s_max, entry["seed"], device, mesh, rules)
@@ -635,7 +721,8 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
             kv = ((lay.di0, lay.di0 + lay.di_loc) if cfg.family == "ssm"
                   else (lay.kv0, lay.kv0 + lay.kv_loc))
             res = dict(logits=[], tokens=[], ops=[], ms=[], pos=[],
-                       rows=(lay.b0, lay.b0 + lay.b_loc), kv=kv)
+                       rows=(lay.b0, lay.b0 + lay.b_loc), kv=kv,
+                       di=(lay.di0, lay.di0 + lay.di_loc), stationary=lay.stationary)
             decode_attention.stats["launches"] = 0
             before = dict(staging)
             for t in range(tokens.shape[1]):
@@ -708,7 +795,8 @@ def _loss(model: Model, params, entry: dict, device, carry: dict):
 
 #: The steps a case may name, in the order they run; a train step's new
 #: parameters are those of the steps after it.
-_STEPS = {"train": _train, "prefill": _prefill, "decode": _decode, "loss": _loss}
+_STEPS = {"train": _train, "grad": _grad, "prefill": _prefill, "decode": _decode,
+          "loss": _loss}
 
 
 def _decode_rules(case: dict, mesh):
@@ -729,8 +817,9 @@ def run(payload: dict) -> List[dict]:
     ``ops`` of the first, ``k2_launches`` and ``k4_launches`` over all of
     them, and host copies of this rank's blocks of the new
     ``params``, ``m`` and ``v`` (those the entry's ``host`` names; default
-    all three); the prefill's ``logits`` (this rank's block ``[B / batch
-    ranks, V / model ranks]``, at ``rows`` and ``cols`` of the whole),
+    all three); the grad entry's (:func:`_grad`); the prefill's
+    ``logits`` (this rank's block ``[B / batch ranks, V / model ranks]``,
+    at ``rows`` and ``cols`` of the whole),
     ``caches`` (host; this rank's blocks in the decode layout), ``ops``,
     ``k2_launches``, ``k4_launches``, and where asked ``routing`` (per MoE
     call, this rank's expert ids and kept entries, ``moe.routing``); the
@@ -743,7 +832,9 @@ def run(payload: dict) -> List[dict]:
     CUDA-synchronised wall clock of each train step, or of the counted
     call and of ``reps`` more; on the card, ``params_allocated`` and
     ``max_memory_allocated``; ``route``.  A mesh of three axes is
-    ``("pod", "data", "model")``."""
+    ``("pod", "data", "model")``.  Any decoder-only family runs: dense,
+    MoE, SSM and hybrid (a hybrid's caches a tree of both kinds under
+    ``"slot{s}"``)."""
     out = []
     for case in payload["cases"]:
         case = {**{k: v for k, v in payload.items() if k != "cases"}, **case}
@@ -757,7 +848,8 @@ def run(payload: dict) -> List[dict]:
         t0 = time.perf_counter()
         params = _params(case, mesh, model, device, param_rules)
         _sync(device)
-        attn = params["stack"].get("attn")
+        attn = next((lp["attn"] for lp in (params["stack"], *params["stack"].values())
+                     if isinstance(lp, dict) and "attn" in lp), None)
         res = dict(coords=mesh.coords, init_s=time.perf_counter() - t0, rules=rules,
                    param_rules=param_rules,
                    kv_heads=None if attn is None else rank_kv_heads(

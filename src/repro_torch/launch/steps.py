@@ -47,13 +47,7 @@ def make_train_step(
     """
 
     def grad_fn(params, mb):
-        paths, leaves = zip(*flatten(params))
-        leaves = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss, _metrics = model.loss(unflatten(paths, leaves), mb)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        return loss.detach(), unflatten(paths, grads)
+        return _loss_and_grads(model, params, mb)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
         if accum <= 1:
@@ -75,15 +69,48 @@ def make_train_step(
             grads = unflatten(list(gsum), [g.div_(accum) for g in gsum.values()])
             loss = lsum / accum
 
-        sq_total = None
-        if (ranks := actctx.rank_params()) is not None:
-            defs = model.defs()
-            grads = actctx.sum_replicated(grads, defs, *ranks)
-            sq_total = lambda sq: actctx.whole_sq_sums(sq, defs, *ranks)  # noqa: E731
+        grads, sq_total = _synced(model, grads)
         new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params, sq_total, donate)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _loss_and_grads(model: Model, params, batch):
+    """(the loss, the gradient tree) of ``Model.loss`` at ``params``."""
+    paths, leaves = zip(*flatten(params))
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, _metrics = model.loss(unflatten(paths, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return loss.detach(), unflatten(paths, grads)
+
+
+def _synced(model: Model, grads):
+    """(the gradient, the map from its leaves' sums of squares to the whole
+    leaves', or None): on a rank mesh each leaf summed over the axes it is
+    held alike along (``actctx.sum_replicated``), the sums of squares by
+    ``actctx.whole_sq_sums``."""
+    if (ranks := actctx.rank_params()) is None:
+        return grads, None
+    defs = model.defs()
+    return (actctx.sum_replicated(grads, defs, *ranks),
+            lambda sq: actctx.whole_sq_sums(sq, defs, *ranks))
+
+
+def make_grad_step(model: Model):
+    """→ grad_step(params, batch) -> {"loss", "grad_norm"}: the train step's
+    gradient of one microbatch and its whole norm (``optim.adamw.
+    global_norm``), synced as the train step syncs it, with no optimizer
+    state."""
+    from ..optim.adamw import global_norm
+
+    def grad_step(params, batch: Dict[str, torch.Tensor]):
+        loss, grads = _loss_and_grads(model, params, batch)
+        grads, sq_total = _synced(model, grads)
+        return {"loss": loss, "grad_norm": global_norm(grads, sq_total)}
+
+    return grad_step
 
 
 def make_prefill_step(model: Model, s_max: int):

@@ -67,10 +67,19 @@ def _qk_normalize(p: dict, q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig):
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, rope, w_k: torch.Tensor,
-         w_v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+         w_v: torch.Tensor, lay=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k and v of ``x`` (k and v by ``w_k``, ``w_v``), q and k
-    normalised and rotated."""
-    q, k, v = _proj(x, p["w_q"]), _proj(x, w_k), _proj(x, w_v)
+    normalised and rotated.  ``lay`` (a ``stationary`` decode layout):
+    ``x`` and the weights are this rank's blocks of ``d_model``, whose
+    float32 partial products are summed over ``data`` in one all-reduce
+    (``attn/in``) and rounded once."""
+    if lay is None:
+        q, k, v = _proj(x, p["w_q"]), _proj(x, w_k), _proj(x, w_v)
+    else:
+        ws = (p["w_q"], w_k, w_v)
+        qkv = lay.contract(x, torch.cat([w.flatten(1) for w in ws], -1), "attn/in")
+        q, k, v = (t.unflatten(-1, w.shape[1:])
+                   for t, w in zip(qkv.split([w[0].numel() for w in ws], -1), ws))
     q, k = _qk_normalize(p, q, k, cfg)
     if rope is not None:
         cos, sin = rope
@@ -256,12 +265,16 @@ def _decode_attention_sharded(p, x, cfg: ModelConfig, rope, k_cache, v_cache, po
     elsewhere.)  Where the positions do not split, every rank holds the
     whole cache and attends as one rank does.  The row-parallel output
     projection on this rank's heads is summed over ``model``
-    (``attn/out``)."""
+    (``attn/out``).  A ``stationary`` layout (a tick whose batch does not
+    split over ``data``) hands it ``x``'s block of ``d_model`` and the
+    weights' blocks: q, k and v are float32 partial products summed over
+    ``data`` (``attn/in``), and the output's block of ``d_model`` is
+    gathered over ``data`` (``attn/data``)."""
     from ..distributed.collectives import all_gather, pmax, psum, reduce_scatter
 
     heads_split = p["w_q"].shape[1] != cfg.n_heads
     kv_split = p["w_k"].shape[1] != cfg.n_kv_heads
-    q, k, v = _qkv(p, x, cfg, rope, p["w_k"], p["w_v"])
+    q, k, v = _qkv(p, x, cfg, rope, p["w_k"], p["w_v"], lay if lay.stationary else None)
     nq_loc = q.shape[2]
     if heads_split:
         parts = [q, k, v] if kv_split else [q]
@@ -292,8 +305,8 @@ def _decode_attention_sharded(p, x, cfg: ModelConfig, rope, k_cache, v_cache, po
         part = part.reshape(q.shape[:2] + (cfg.n_heads, q.shape[3]))
         out = (reduce_scatter(part, lay.mesh, "model", 2, "attn/pv") if heads_split
                else psum(part, lay.mesh, "model", "attn/pv")).to(q.dtype)
-    y = _out_proj(out, p["w_o"])
-    return lay.scatter_seq(y, heads_split, "attn/out"), k_cache, v_cache
+    y = lay.scatter_seq(_out_proj(out, p["w_o"]), heads_split, "attn/out")
+    return (lay.whole_d(y, "attn/data") if lay.stationary else y), k_cache, v_cache
 
 
 def cross_attention(

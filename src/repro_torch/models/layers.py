@@ -98,7 +98,15 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig, lay=None) -> torch.Ten
     ``d_model`` whole: the block is gathered along the sequence, the
     product runs on this rank's ``d_ff`` columns, and its share of the
     output is reduce-scattered back (where ``d_ff`` does not split over
-    ``model``, every rank holds every column and keeps its positions)."""
+    ``model``, every rank holds every column and keeps its positions).  A
+    ``stationary`` layout (a decode tick that keeps the ``d_model`` blocks
+    in place) hands it ``x``'s block of ``d_model`` and the weights'
+    blocks: the in-projections' float32 partial products summed over
+    ``data`` (``mlp/in``) and rounded once, the output on the rank's block
+    of ``d_model``, summed over ``model``, then gathered over ``data``
+    (``mlp/data``)."""
+    if lay is not None and lay.stationary:
+        return _mlp_stationary(p, x, cfg, lay)
     if lay is not None:
         x = lay.gather_seq(x, "mlp/in")
     if cfg.mlp_kind == "swiglu":
@@ -113,3 +121,16 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig, lay=None) -> torch.Ten
     if lay is not None:
         y = lay.scatter_seq(y, h.shape[-1] != cfg.d_ff, "mlp/out")
     return y
+
+
+def _mlp_stationary(p: dict, x: torch.Tensor, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`mlp_block` under a ``stationary`` layout."""
+    names = ("w_gate", "w_up") if cfg.mlp_kind == "swiglu" else ("w_in",)
+    h = lay.contract(x, torch.cat([p[n] for n in names], -1), "mlp/in")
+    if cfg.mlp_kind == "swiglu":
+        g, u = h.chunk(2, -1)
+        h = F.silu(g.float()).to(x.dtype) * u
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    y = h @ p["w_down" if cfg.mlp_kind == "swiglu" else "w_out"]
+    return lay.whole_d(lay.scatter_seq(y, h.shape[-1] != cfg.d_ff, "mlp/out"), "mlp/data")

@@ -15,11 +15,11 @@ Batch keys by family: ``tokens`` (all LM), ``vision_embeds`` (vlm stub),
 keeps a length-1 sequence axis, ``[B, 1, V]``).
 
 Under an ``activation_sharding`` context whose mesh is a rank mesh of more
-than one rank, a dense, MoE or SSM model's ``loss`` and ``prefill`` run
-sharded (``distributed/actctx.py::rank_layout``), as the reference's
-partitioned cell under the baseline, ``opt`` and small-DP policies: ``params`` are
-this rank's blocks by the context's parameter rules
-(``Model.init(shard=sharding.rank_shard(mesh, param_rules))``,
+than one rank, a dense, MoE, SSM or hybrid model's ``loss`` and
+``prefill`` run sharded (``distributed/actctx.py::rank_layout``), as the
+reference's partitioned cell under the baseline, ``opt`` and small-DP
+policies: ``params`` are this rank's blocks by the context's parameter
+rules (``Model.init(shard=sharding.rank_shard(mesh, param_rules))``,
 ``convert.shard_params``), ``batch`` the whole batch on every rank.  The
 embedding is a vocab-parallel lookup (rows outside this rank's block of
 the vocabulary give 0), reduce-scattered into the residual stream's block
@@ -27,44 +27,47 @@ the vocabulary give 0), reduce-scattered into the residual stream's block
 this rank's heads and ``d_ff`` columns, or its ``d_inner`` channels, or
 an MoE layer on its experts (``models/moe.py``: the global gather
 dispatch under the baseline, the a2a body on the stream's block where
-``moe_impl="a2a"`` applies); the head is vocab-parallel.  A tied head
-is the embedding's vocab-parallel block, gathered over ``data`` for the
-head as for the lookup: its logits are ``x @ block.T``, this rank's
-block of the vocabulary, and under autograd the leaf's gradient sums
-both uses.
+``moe_impl="a2a"`` applies); a hybrid period runs each slot as its own
+family runs its layer, one slot's weights gathered at a time
+(``models/transformer.py``); the head is vocab-parallel.  A tied head is
+the embedding's vocab-parallel block, gathered over ``data`` for the
+head as for the lookup: its logits are ``x @ block.T``, this rank's block
+of the vocabulary, and under autograd the leaf's gradient sums both uses.
 ``prefill`` returns this rank's block of the last position's logits,
 ``[B / batch ranks, V / model ranks]`` (the reference's output spec
 ``(batch, vocab)``), and this rank's blocks of the caches in the layout
 the reference's prefill cell writes them (``out_shardings`` under
 ``ACT_RULES_DECODE``, ``sharding.decode_rules``): its rows, its block of
 positions over ``model`` (every position where ``s_max`` does not divide
-the axis), every kv head; an SSM's mamba states its rows and block of
-``d_inner`` (:meth:`Model._cache_blocks`).  Under the decode rules
-``decode`` runs the reference's decode cell: ``token`` the whole ``[B,
-1]``, ``caches`` this rank's blocks in that layout (``s_max`` the
-attention caches' whole length; an SSM's caches do not grow), the softmax
-across the ranks' blocks of positions (``attention.decode_attention``) or
-the mamba update on the rank's channels (``ssm.mamba_decode``), an MoE
-layer with its expert stacks' ``d_model`` blocks in place under the
-gather dispatch (``RankLayout.experts_stationary``); it
-returns this rank's ``[B / batch ranks, V / model ranks]`` logits and
-writes its blocks in place.  An SSM's tick whose batch does not split
-over ``data`` keeps every ``d_model`` block in place
-(``actctx.keeps_d_blocks``): the lookup's block gathered over ``data``,
-the head's float32 partial products over ``d_model`` summed over it.
-``loss`` takes a vocab-parallel cross-entropy — each rank's log-sum-exp
-and gold logit over its block of the vocabulary, gathered over ``model``
-and combined — and returns the mean over every position of the global
-batch, the same on every rank, plus the MoE balance term over the global
-token population, also the same on every rank.  Under autograd the loss
-is the root of the backward pass through the collectives' transposes
+the axis), every kv head; the mamba states its rows and block of
+``d_inner``; a hybrid's nested tree holds both kinds, slot by slot
+(:meth:`Model._cache_blocks`).  Under the decode rules ``decode`` runs
+the reference's decode cell: ``token`` the whole ``[B, 1]``, ``caches``
+this rank's blocks in that layout (``s_max`` the attention caches' whole
+length; an SSM's caches do not grow), the softmax across the ranks'
+blocks of positions (``attention.decode_attention``) or the mamba update
+on the rank's channels (``ssm.mamba_decode``), an MoE layer with its
+expert stacks' ``d_model`` blocks in place under the gather dispatch
+(``RankLayout.experts_stationary``); it returns this rank's ``[B / batch
+ranks, V / model ranks]`` logits and writes its blocks in place.  An SSM's
+or hybrid's tick whose batch does not split over ``data`` keeps every
+``d_model`` block in place (``actctx.keeps_d_blocks``): the lookup's block
+gathered over ``data``, every slot's in-projections partial products
+summed over it and its output block gathered over it
+(``models/transformer.py``), the head's float32 partial products over
+``d_model`` summed over it.  ``loss`` takes a vocab-parallel
+cross-entropy — each rank's log-sum-exp and gold logit over its block of
+the vocabulary, gathered over ``model`` and combined — and returns the
+mean over every position of the global batch, the same on every rank,
+plus the MoE balance term over the global token population, also the
+same on every rank.  Under autograd the loss is the root of the backward
+pass through the collectives' transposes
 (``distributed/collectives.py``): the cross-entropy and the balance term
 each seed their cotangent as shares, and each leaf's gradient comes back
 as this rank's share, which ``launch/steps.py::make_train_step`` sums
-over the axes the leaf is held alike along.  The hybrid,
-encoder-decoder and VLM families raise under autograd on a rank mesh
-(their sharded train step is not ported), and run whole on every rank
-without it.
+over the axes the leaf is held alike along.  The encoder-decoder and VLM
+families raise under autograd on a rank mesh (their sharded train step
+is not ported), and run whole on every rank without it.
 """
 from __future__ import annotations
 
@@ -76,7 +79,8 @@ import torch
 from ..configs.base import ModelConfig
 from . import encdec as ed
 from .layers import rms_norm, rope_tables
-from .params import P, Tree, abstract_params, dtype_of, init_params, param_axes, tree_map_defs
+from .params import (P, Tree, abstract_params, dtype_of, flatten, init_params, param_axes,
+                     tree_map_defs)
 from .transformer import (
     apply_stack_decode,
     apply_stack_full,
@@ -138,34 +142,40 @@ class Model:
 
     def _layout(self, batch: Dict[str, torch.Tensor]):
         """The rank layout of this batch under the active context (a dense,
-        MoE or SSM model on a rank mesh), or None."""
+        MoE, SSM or hybrid model on a rank mesh), or None."""
         from ..distributed.actctx import rank_layout, rank_params
 
-        if self.cfg.family not in ("dense", "moe", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             if torch.is_grad_enabled() and rank_params() is not None:
                 raise NotImplementedError(f"the {self.cfg.family} family's sharded train step")
             return None
         return rank_layout(*batch["tokens"].shape, self.cfg.d_model)
 
     def cache_layout(self, lay, s_max: int, rules):
-        """``lay`` with this rank's block of the decode caches under
-        ``rules`` (``actctx.cache_layout`` of an attention cache of
-        ``s_max`` positions, or of an SSM's state); an MoE model's layout
-        keeps its expert stacks' ``d_model`` blocks in place under the
-        gather dispatch where they split over ``data``
-        (``actctx.keeps_expert_blocks``)."""
+        """``lay`` with this rank's blocks of the decode caches under
+        ``rules``: ``actctx.cache_layout`` of the first attention cache of
+        ``s_max`` positions and of the first mamba state, whichever the
+        model has (a hybrid both, one call each).  An SSM's or hybrid's
+        layout keeps every ``d_model`` block in place where the batch does
+        not split over ``data`` (``stationary``, ``actctx.keeps_d_blocks``);
+        an MoE or hybrid model's keeps its expert stacks' ``d_model`` blocks
+        in place under the gather dispatch where they split over ``data``
+        (``experts_stationary``, ``actctx.keeps_expert_blocks``)."""
         from ..distributed.actctx import cache_layout, keeps_d_blocks, keeps_expert_blocks
         from .moe import a2a_on_ranks
 
-        if self.cfg.family == "moe":
-            lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], rules)
-            keep = (not a2a_on_ranks(self.cfg, lay.mesh)
-                    and keeps_expert_blocks(lay.mesh, lay.param_rules, self.cfg.d_model))
-            return replace(lay, experts_stationary=keep)
-        if self.cfg.family != "ssm":
-            return cache_layout(lay, self.cache_defs(lay.b, s_max)["k"], rules)
-        lay = cache_layout(lay, self.cache_defs(lay.b, s_max)["h"], rules)
-        return replace(lay, stationary=keeps_d_blocks(lay, self.cfg.d_model))
+        cfg = self.cfg
+        first = {}
+        for path, decl in flatten(self.cache_defs(lay.b, s_max)):
+            first.setdefault(path[-1], decl)
+        for leaf in ("k", "h"):
+            if leaf in first:
+                lay = cache_layout(lay, first[leaf], rules)
+        experts = (cfg.family in ("moe", "hybrid") and not a2a_on_ranks(cfg, lay.mesh)
+                   and keeps_expert_blocks(lay.mesh, lay.param_rules, cfg.d_model))
+        return replace(lay, experts_stationary=experts,
+                       stationary=(cfg.family in ("ssm", "hybrid")
+                                   and keeps_d_blocks(lay, cfg.d_model)))
 
     def _rope(self, positions: torch.Tensor):
         if not self.cfg.use_rope or self.cfg.n_heads == 0:
@@ -295,32 +305,48 @@ class Model:
         return logits, self._pad_states(states, s_max)
 
     def _cache_blocks(self, params: Tree, states: Tree, s_max: int, lay) -> Tree:
-        """An SSM's mamba states come out of the sharded prefill already on
-        this rank's rows and ``d_inner`` block, the decode layout, so they
-        are returned as they are, with no collective.  The sharded
-        prefill's k and v (this rank's rows over the whole
-        sequence, on the kv heads ``attention.rank_kv_heads`` gives it),
+        """The sharded prefill's states → this rank's blocks of the caches
+        in the decode layout (module docstring), slot by slot for a
+        hybrid.  The mamba states come out of the sharded prefill already
+        on this rank's rows and ``d_inner`` block, the decode layout, so
+        they are returned as they are, with no collective; the attention
+        slot's k and v go through :meth:`_kv_blocks`, one op for its
+        stack of layers."""
+        from ..distributed.sharding import decode_rules
+
+        cl = self.cache_layout(lay, s_max, decode_rules(lay.mesh))
+        if self.cfg.family != "hybrid":
+            return self._layer_blocks(params["stack"], states, s_max, lay, cl)
+        return {key: self._layer_blocks(params["stack"][key], st, s_max, lay, cl)
+                for key, st in states.items()}
+
+    def _layer_blocks(self, lp: Tree, states: Tree, s_max: int, lay, cl) -> Tree:
+        """One stack's (or slot's) states, its stacked weights ``lp``, in the
+        decode layout ``cl`` (:meth:`_cache_blocks`)."""
+        if "h" not in states:
+            return self._kv_blocks(lp["attn"], states, s_max, lay, cl)
+        if tuple(states["h"].shape[1:3]) != (cl.b_loc, cl.di_loc):
+            raise ValueError(f"states {tuple(states['h'].shape)} are not the caches' block")
+        return states
+
+    def _kv_blocks(self, attn: Tree, states: Tree, s_max: int, lay, cl) -> Tree:
+        """The sharded prefill's k and v of an attention stack (this rank's
+        rows over the whole sequence, on the kv heads
+        ``attention.rank_kv_heads`` gives it; ``attn`` its stacked weights),
         padded to ``s_max`` → this rank's blocks of the caches in the decode
-        layout (module docstring).  Where the kv heads split over ``model``
-        one all-to-all over ``model`` (``prefill/cache``) swaps blocks of
+        layout ``cl``.  Where the kv heads split over ``model`` one
+        all-to-all over ``model`` (``prefill/cache``) swaps blocks of
         positions for blocks of heads; where they are whole, each rank sends
         the heads it has at their places and takes each head from the first
         rank that has it; where the positions do not split, an all-gather
         takes the place of the all-to-all.  Where the q heads do not split,
         every rank has every kv head and keeps its positions."""
         from ..distributed.collectives import all_gather, all_to_all
-        from ..distributed.sharding import decode_rules
         from .attention import rank_kv_heads
 
         cfg, n = self.cfg, lay.n_model
-        cl = self.cache_layout(lay, s_max, decode_rules(lay.mesh))
-        if cfg.family == "ssm":
-            if tuple(states["h"].shape[1:3]) != (cl.b_loc, cl.di_loc):
-                raise ValueError(f"states {tuple(states['h'].shape)} are not the caches' block")
-            return states
         padded = self._pad_states(states, s_max)
         x = torch.stack([padded["k"], padded["v"]])        # [2, L, b, s_max, heads, hd]
-        attn = params["stack"]["attn"]
         if attn["w_q"].shape[-2] == cfg.n_heads:
             x = x[:, :, :, cl.kv0:cl.kv0 + cl.kv_loc]
             return {"k": x[0].contiguous(), "v": x[1].contiguous()}
@@ -371,7 +397,8 @@ class Model:
         """One-token step → (logits [B, V], caches).  The caches are
         updated in place and returned.  On a rank mesh (module docstring)
         ``s_max`` is the attention caches' whole length, which their blocks
-        do not tell (an SSM needs none)."""
+        do not tell (an SSM needs none); every ``k`` and ``h`` leaf must be
+        this rank's block."""
         if self.cfg.family == "encdec":
             logits, caches = ed.decode_step(params, token, int(pos), caches, self.cfg)
             return logits[:, 0], caches
@@ -379,15 +406,16 @@ class Model:
         if lay is not None:
             from ..distributed.actctx import active
 
-            ssm = self.cfg.family == "ssm"
-            if s_max is None and not ssm:
+            if s_max is None and self.cfg.family != "ssm":
                 raise ValueError("a decode on a rank mesh needs the caches' length, s_max")
             lay = self.cache_layout(lay, s_max or 0, active()[1])
-            leaf, want = ("h", lay.di_loc) if ssm else ("k", lay.kv_loc)
-            if tuple(caches[leaf].shape[1:3]) != (lay.b_loc, want):
-                raise ValueError(f"caches {tuple(caches[leaf].shape)} are not this rank's "
-                                 f"{lay.b_loc} rows and {want} "
-                                 f"{'channels' if ssm else 'positions'}")
+            blocks = {"k": (lay.kv_loc, "positions"), "h": (lay.di_loc, "channels")}
+            for path, leaf in flatten(caches):
+                if path[-1] in blocks and tuple(leaf.shape[1:3]) != (lay.b_loc,
+                                                                     blocks[path[-1]][0]):
+                    raise ValueError(f"caches {'/'.join(path)} {tuple(leaf.shape)} are not this "
+                                     f"rank's {lay.b_loc} rows and {blocks[path[-1]][0]} "
+                                     f"{blocks[path[-1]][1]}")
             token = lay.rows(token)
         x = self._embed(params, token, lay)
         rope = self._rope(torch.tensor([int(pos)], device=x.device))

@@ -121,7 +121,11 @@ def route(p: dict, xt: torch.Tensor, cfg: ModelConfig):
     renormalised gate values [T,k], expert ids [T,k]).  Logits are taken
     in the compute dtype and cast to float32 before the softmax; among
     equal probabilities the lower expert index comes first."""
-    logits = (xt @ p["router"]).float()
+    return _pick((xt @ p["router"]).float(), cfg)
+
+
+def _pick(logits: torch.Tensor, cfg: ModelConfig):
+    """:func:`route` from the router's float32 logits ``[T, E]``."""
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, : cfg.top_k], idx[:, : cfg.top_k]
@@ -254,7 +258,12 @@ def _moe_block_ranks(p: dict, x: torch.Tensor, cfg: ModelConfig, lay
     in-projections' float32 partial products summed over ``data``
     (``moe/experts``) and rounded once, the out-projection and the combine
     run on the rank's ``d_model`` block, which is gathered over ``data``
-    (``moe/data``) before the rank keeps its rows."""
+    (``moe/data``) before the rank keeps its rows.  A ``stationary``
+    layout (a tick whose batch does not split over ``data``) hands the
+    block the normed stream's ``d_model`` block, every row on every rank,
+    and the router's block: the router's columns gathered over ``model``,
+    its float32 partial products summed over ``data`` (``moe/route``) and
+    rounded once; the rest as under ``experts_stationary``."""
     from ..distributed.collectives import all_gather, psum
 
     mesh, e, k = lay.mesh, cfg.n_experts, cfg.top_k
@@ -272,7 +281,10 @@ def _moe_block_ranks(p: dict, x: torch.Tensor, cfg: ModelConfig, lay
     e_loc = p["router"].shape[-1]
     router = p["router"] if e_loc == e else all_gather(p["router"], mesh, "model", 1,
                                                        "moe/router")
-    probs, gate_vals, gate_idx = route({"router": router}, xt, cfg)
+    if lay.stationary:      # xt: this rank's block of d_model
+        probs, gate_vals, gate_idx = _pick(lay.contract(xt, router, "moe/route").float(), cfg)
+    else:
+        probs, gate_vals, gate_idx = route({"router": router}, xt, cfg)
 
     top1 = gate_idx[:, 0]
     ones = torch.ones_like(top1, dtype=probs.dtype)
@@ -296,7 +308,7 @@ def _moe_block_ranks(p: dict, x: torch.Tensor, cfg: ModelConfig, lay
     e0 = lay.mi * e_loc if e_loc != e else 0
     mine = keep & (sorted_e >= e0) & (sorted_e < e0 + e_loc)
     dest = torch.where(mine, (sorted_e - e0) * cap + pos, torch.full_like(pos, e_loc * cap))
-    src = lay.d_block(xt) if keep_d else xt
+    src = lay.d_block(xt) if keep_d and not lay.stationary else xt
     buf = src.new_zeros((e_loc * cap + 1, src.shape[1]))
     buf[dest] = src[order // k]
     buf = buf[: e_loc * cap].view(e_loc, cap, -1)

@@ -17,7 +17,7 @@ the hybrid stack (``torch.utils.checkpoint``, the reference's
 ``"slot{s}"`` with ``L`` its periods — and each layer writes its slice in
 place.
 
-On a rank mesh a dense, MoE or SSM stack runs sharded (``lay``, the
+On a rank mesh every decoder-only stack runs sharded (``lay``, the
 model's ``RankLayout``): the residual stream between layers is this
 rank's block (the reference's ``constrain(x, ("batch", "seq", None))`` at
 each layer), each layer's weights are gathered along ``d_model`` by one
@@ -26,29 +26,45 @@ collective just before the layer runs and dropped after it
 rank's heads and ``d_ff`` columns, the MoE block on its experts
 (``models/moe.py``: the global gather dispatch, or the a2a body on the
 stream's block, whose ``moe`` leaves the layer's gather leaves to it), or
-the mamba block on its ``d_inner`` channels (``models/ssm.py``).  The
-gather lies inside the checkpointed unit, so a training pass under
-``cfg.remat`` gathers each layer's weights again when the backward pass
-recomputes the layer, and drops them after, as the reference's ZeRO-3
-under ``jax.checkpoint`` does: a rank never holds more than one layer's
-gathered weights.  The recomputation stops at the layer's last saved
-tensor (``torch.utils.checkpoint``'s early stop, on by default), so it
-issues the layer's collectives up to its MLP's input gather (a mamba
-layer's up to its ``mamba/dtbc`` sum, an MoE layer's under the gather
-dispatch up to its ``moe/counts`` gather, under the a2a dispatch all of
-them: its combine saves its indices after the last all-to-all), each
-counted as the backward pass's (``collectives.recomputing``).  The
-recomputed MoE layer routes as its forward pass did: the same inputs, the
-same deterministic router, sort and capacity.  A decode tick on a rank
-mesh gathers each layer's weights the same way, and each attention layer
-writes the new token's k and v into this rank's block of the caches
-where the block holds its position; a mamba layer updates its rows and
-channels of the conv window and the state.  Where the decode's batch
-does not split over ``data`` an SSM stack keeps its ``d_model`` blocks
-in place instead (``RankLayout.stationary``; ``ssm.mamba_decode``); an
-MoE tick under the gather dispatch keeps its expert stacks' blocks in
-place (``RankLayout.experts_stationary``).  The hybrid stack is not
-sharded.
+the mamba block on its ``d_inner`` channels (``models/ssm.py``).  A
+hybrid period runs each of its slots as that slot's own family runs its
+layer: the gather takes one slot's weights with that slot's declaration
+(``_one_layer_defs`` of its mixer and ffn), just before the slot, and
+drops them after it, so a rank never holds more than one slot's gathered
+weights (at jamba-v0.1-52b's width an MoE slot's, 2.8 GB in bf16 on a
+(2, 2) mesh, where the whole period's would be 12.8 GB more); which
+``moe`` leaves the gather leaves in place follows the slot's ffn
+(:func:`moe_kept_leaves`).  The gathers lie inside the checkpointed unit
+(a layer, or a hybrid period, as the reference's ``jax.checkpoint`` over
+its scan body), so a training pass under ``cfg.remat`` gathers them again
+when the backward pass recomputes the unit, and drops them after, as the
+reference's ZeRO-3 under ``jax.checkpoint`` does.  The recomputation
+stops at the unit's last saved tensor (``torch.utils.checkpoint``'s early
+stop, on by default), so it issues the unit's collectives up to its last
+MLP's input gather (a mamba layer's up to its ``mamba/dtbc`` sum, an MoE
+layer's under the gather dispatch up to its ``moe/counts`` gather, under
+the a2a dispatch all of them: its combine saves its indices after the
+last all-to-all); a hybrid period's recomputation issues every slot's
+collectives but the last slot's output collective (jamba's: slot 7's
+``moe/out`` under the gather dispatch, none under the a2a), each counted
+as the backward pass's (``collectives.recomputing``).  The recomputed MoE
+layer routes as its forward pass did: the same inputs, the same
+deterministic router, sort and capacity.  A decode tick on a rank mesh
+gathers each layer's (each slot's) weights the same way, and each
+attention layer writes the new token's k and v into this rank's block of
+the caches where the block holds its position; a mamba layer updates its
+rows and channels of the conv window and the state.  Where the decode's
+batch does not split over ``data`` an SSM or hybrid stack keeps every
+``d_model`` block in place instead (``RankLayout.stationary``): the
+residual stream whole on every rank, both norms giving this rank's block
+of ``d_model``, every in-projection (attention's q, k and v, the MLP's
+gate and up, the MoE router and expert in-projections, mamba's ``w_in``)
+a float32 partial product over that block summed over ``data``, every
+out-projection landing on the rank's block, which one all-gather over
+``data`` makes whole again (``attn/data``, ``mlp/data``, ``moe/data``,
+``mamba/data``), as GSPMD partitions the reference's decode cell.  An MoE
+tick under the gather dispatch keeps its expert stacks' blocks in place
+(``RankLayout.experts_stationary``).
 """
 from __future__ import annotations
 
@@ -152,7 +168,7 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
     """→ (x, aux, state): the MoE balance term (float32, zero without an
     MoE), and the layer's cache contribution — attn: {"k","v"} over the S
     positions seen; mamba: {"conv","h"} final — or None.  ``lay``: the
-    dense, MoE or mamba layer on a rank mesh (module docstring)."""
+    layer on a rank mesh (module docstring)."""
     state = None
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
@@ -178,7 +194,7 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
 def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
                         ffn: str, cache: Dict[str, torch.Tensor], pos: int,
                         lay=None) -> torch.Tensor:
-    keep = lay is not None and lay.stationary        # an SSM layer's d_model blocks in place
+    keep = lay is not None and lay.stationary        # every d_model block in place
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, lay if keep else None)
     if mixer == "attn":
         y, _, _ = decode_attention(lp["attn"], h, cfg, rope, cache["k"], cache["v"], pos, lay)
@@ -188,8 +204,10 @@ def _apply_layer_decode(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer
         cache["h"].copy_(h_c)
     x = x + y
     if ffn != "none":
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps, lay if keep else None)
         if ffn == "moe":
+            if keep and a2a_on_ranks(cfg, lay.mesh):    # the a2a body takes whole rows
+                h = lay.whole_d(h, "moe_a2a/in")
             y, _ = moe_block(lp["moe"], h, cfg, lay)
         else:
             y = mlp_block(lp["mlp"], h, cfg, lay)
@@ -223,18 +241,18 @@ def apply_stack_full(
     for the stacks without MoE.  With ``cfg.remat``, no state to collect
     and grad enabled, each layer (each period of the hybrid stack) is
     checkpointed: its activations are recomputed in the backward pass
-    instead of kept.  ``lay``: a dense, MoE or SSM stack on a rank mesh
-    (module docstring)."""
+    instead of kept.  ``lay``: the stack on a rank mesh, each slot's
+    weights gathered just before it runs (module docstring)."""
     n_units, slots = _units(cfg)
-    layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
 
     def unit(up, x, aux):
         states = {}
-        if lay is not None:
-            up = gather_layer(cfg, up, layer_defs, lay)
         for key, mixer, ffn in slots:
             lp = up if key is None else up[key]
+            if lay is not None:
+                lp = gather_layer(cfg, lp, _one_layer_defs(cfg, mixer, ffn), lay, ffn)
             x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state, lay)
+            del lp      # this slot's gathered weights, before the next slot's gather
             aux = aux + a
             states[key] = st
         # A uniform stack's unit is one layer, whose state is the unit's.
@@ -256,13 +274,14 @@ def apply_stack_full(
     return x, aux, _stack_trees(states)
 
 
-def gather_layer(cfg: ModelConfig, up: Tree, defs: Tree, lay) -> Tree:
-    """One layer's weights with ``d_model`` whole (``RankLayout.
-    gather_params``), but the ``moe`` leaves that stay as they are: all of
-    them where the layer takes the a2a dispatch, whose body gathers them
-    over ``data`` itself, and the expert stacks where the layout keeps
+def gather_layer(cfg: ModelConfig, up: Tree, defs: Tree, lay, ffn: str) -> Tree:
+    """One layer's (one slot's) weights, declared by ``defs``, with
+    ``d_model`` whole (``RankLayout.gather_params``), but the ``moe``
+    leaves that stay as they are (:func:`moe_kept_leaves` of its ``ffn``):
+    all of them where the layer takes the a2a dispatch, whose body gathers
+    them over ``data`` itself, and the expert stacks where the layout keeps
     their ``d_model`` blocks in place (``experts_stationary``)."""
-    kept = moe_kept_leaves(cfg, lay.mesh, lay.experts_stationary)
+    kept = moe_kept_leaves(cfg, ffn, lay.mesh, lay.experts_stationary)
     if not kept:
         return lay.gather_params(up, defs, "layer")
     out = lay.gather_params(_without(up, kept), _without(defs, kept), "layer")
@@ -270,10 +289,12 @@ def gather_layer(cfg: ModelConfig, up: Tree, defs: Tree, lay) -> Tree:
     return out
 
 
-def moe_kept_leaves(cfg: ModelConfig, mesh, experts_stationary: bool) -> Tuple[str, ...]:
-    """The ``moe`` leaves a layer's gather over ``data`` leaves as they
-    are on a rank mesh of ``mesh``'s shape (:func:`gather_layer`)."""
-    if cfg.family != "moe":
+def moe_kept_leaves(cfg: ModelConfig, ffn: str, mesh, experts_stationary: bool
+                    ) -> Tuple[str, ...]:
+    """The ``moe`` leaves a layer (or slot) whose ffn is ``ffn`` leaves as
+    they are in its gather over ``data`` on a rank mesh of ``mesh``'s shape
+    (:func:`gather_layer`): none but for an MoE ffn."""
+    if ffn != "moe":
         return ()
     names = tuple(moe_defs(cfg))
     if a2a_on_ranks(cfg, mesh):
@@ -308,19 +329,20 @@ def apply_stack_decode(
 ):
     """One-token pass → (x, caches); each layer writes its slice of the
     stacked caches in place, and the same dict is returned.  An MoE
-    layer's auxiliary loss is dropped, as in the reference.  ``lay``: a
-    dense, MoE or SSM stack on a rank mesh under the decode rules, whose caches
-    are this rank's blocks (module docstring; ``attention.decode_attention``,
-    ``ssm.mamba_decode``)."""
+    layer's auxiliary loss is dropped, as in the reference.  ``lay``: the
+    stack on a rank mesh under the decode rules, whose caches are this
+    rank's blocks, each slot's weights gathered just before it runs, or
+    none where the layout is ``stationary`` (module docstring;
+    ``attention.decode_attention``, ``ssm.mamba_decode``)."""
     n_units, slots = _units(cfg)
-    layer_defs = None if lay is None else _one_layer_defs(cfg, *_slot_kind(cfg, 0))
     for ui in range(n_units):
         up, cu = _index_tree(stack, ui), _index_tree(caches, ui)
-        if lay is not None and not lay.stationary:
-            up = gather_layer(cfg, up, layer_defs, lay)
         for key, mixer, ffn in slots:
             lp, cc = (up, cu) if key is None else (up[key], cu[key])
+            if lay is not None and not lay.stationary:
+                lp = gather_layer(cfg, lp, _one_layer_defs(cfg, mixer, ffn), lay, ffn)
             x = _apply_layer_decode(lp, x, cfg, rope, mixer, ffn, cc, pos, lay)
+            del lp
     return x, caches
 
 

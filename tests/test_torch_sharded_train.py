@@ -330,12 +330,13 @@ def _fake_rank_mesh(shape=(1, 2), rank=0):
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b", "whisper-base",
                                   "falcon-mamba-7b", "internvl2-1b", "tied-dense"])
 def test_loss_under_autograd_on_ranks_raises_off_the_sharded_families(arch):
-    """A rank mesh's context with autograd on: the hybrid,
-    encoder-decoder and VLM families raise before any collective (their
-    sharded train step is not ported); the SSM and MoE families and a
-    dense model with a tied head take the sharded path's layout instead
-    (their train steps on ranks: ``tests/test_torch_sharded_ssm.py``,
-    ``tests/test_torch_sharded_moe.py``)."""
+    """A rank mesh's context with autograd on: the encoder-decoder and VLM
+    families raise before any collective (their sharded train step is not
+    ported); the SSM, MoE and hybrid families and a dense model with a
+    tied head take the sharded path's layout instead (their train steps
+    on ranks: ``tests/test_torch_sharded_ssm.py``,
+    ``tests/test_torch_sharded_moe.py``,
+    ``tests/test_torch_sharded_hybrid.py``)."""
     if arch == "tied-dense":
         cfg = get_config(ARCH, smoke=True).with_(tie_embeddings=True)
     else:
@@ -344,7 +345,8 @@ def test_loss_under_autograd_on_ranks_raises_off_the_sharded_families(arch):
     batch = {"tokens": torch.zeros(2, 8, dtype=torch.long)}
     with actctx.activation_sharding(_fake_rank_mesh(), {"batch": ("data",), "seq": "model"}):
         with torch.enable_grad():
-            if arch in ("falcon-mamba-7b", "moonshot-v1-16b-a3b", "tied-dense"):
+            if arch in ("falcon-mamba-7b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b",
+                        "tied-dense"):
                 lay = model._layout(batch)
                 assert (lay.batch, lay.seq_sharded, lay.b_loc, lay.s_loc) == (("data",), True, 2, 4)
                 return
