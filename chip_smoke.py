@@ -264,6 +264,27 @@ result lines are printed:
               collectives equal to ``sharded_collectives``, K2 once a
               period in every prefill and eval, K4 7 times a period in
               every eval.
+18. sharded encoder-decoder and VLM — internvl2-1b and whisper-base at
+              full width sharded over 4 ranks of the one card (gloo,
+              host-staged), the one-rank references first, vision
+              embeddings and frames from the seed: (a) internvl2-1b in
+              float32, 24 layers, on (1, 4): the prefill of 2 × (256 +
+              512) within 1e-4, the loss of 2 × (256 + 768) and 2 ticks
+              from the prefill's caches within 5e-5 of one rank; (b) on
+              (2, 2): float32 at 4 layers (the prefill, the loss), bf16 at
+              24 (the prefill, the eval through K2, 2 ticks, one
+              decode_32k tick), each no farther from float32 than 1.5 ×
+              one rank's, the first tokens equal or a near tie; (c) one
+              float32 train step under ``opt`` on (1, 4) at 4 layers; (d)
+              whisper-base whole in float32 on (1, 4) and (2, 2): the
+              prefill of 2 × (1 500 frames, 128 tokens), the loss of 2 ×
+              384, 2 ticks; (e) whisper-base in bf16 on (1, 4): the
+              prefill, the eval, 2 ticks, one decode_32k tick; (f) its
+              float32 train step under the baseline on (2, 2) and under
+              ``opt`` (small-DP) on (1, 4), by phase 14 (a)'s gates; (g)
+              every rank's collectives equal to ``sharded_collectives``,
+              K2 once a decoder layer in every prefill and eval and never
+              in a tick or a train step.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -281,8 +302,10 @@ kernels in one call.
     python3 chip_smoke.py --sharded-ssm
     python3 chip_smoke.py --sharded-moe
     python3 chip_smoke.py --sharded-hybrid
+    python3 chip_smoke.py --sharded-encdec-vlm
 
-build the kernels and run phase 14, 13, 15, 16 or 17 alone (its line only).
+build the kernels and run phase 14, 13, 15, 16, 17 or 18 alone (its line
+only).
 """
 from __future__ import annotations
 
@@ -2803,8 +2826,8 @@ EXPERT_SERVE = dict(slots=1, s_max=640, requests=2, prompt_len=512, max_new=4)
 EXPERT_LIMIT = 600               # seconds for one multi-rank run
 # Served depth caps for the script's time (phi3.5-moe: 21 of 32 layers fit
 # by the reckoning, moonshot all 48; 6 and 12 for the script's time,
-# PERF.md §4).
-EXPERT_MAX_LAYERS = {"phi3.5-moe-42b-a6.6b": 6, "moonshot-v1-16b-a3b": 12}
+# PERF.md §4; moonshot 12 → 6 for phase 18's).
+EXPERT_MAX_LAYERS = {"phi3.5-moe-42b-a6.6b": 6, "moonshot-v1-16b-a3b": 6}
 # a2a against the one-rank gather, float32: the same products over other
 # buffer shapes, and the balance sums over the ranks in another order.
 EXPERT_TOL = 1e-4
@@ -3088,7 +3111,7 @@ SHARDED_BF16_LAYERS = 10
 # through host memory.  (e) holds SHARDED_TOL against the one-rank model,
 # (f) SHARDED_BF16_FACTOR against the float32 reference.
 DECODE_S_MAX = 1024
-DECODE_TICKS = dict(f32=2, bf16=4)     # for the script's time (PERF.md §4)
+DECODE_TICKS = dict(f32=1, bf16=4)     # for the script's time (PERF.md §4; f32 2 → 1)
 LONG = dict(b=4, s_max=32768, pos=32000, seed=SEED + 23)
 
 
@@ -3136,6 +3159,13 @@ def _sharded_references(cfg, prompts, loss_tokens, long_token, dev):
         del params
         _free()
     return out
+
+
+def _dense_loss_bound(one_rank_dist):
+    """Phase 13's bound on a sharded bf16 loss's distance from float32:
+    twice one rank's distance, or 1e-3 where that is smaller (a mean over
+    thousands of positions of bf16 sums in another order)."""
+    return max(1e-3, 2 * one_rank_dist)
 
 
 def _ticks_f32(cfg, params, prompts, fed, dev):
@@ -3366,7 +3396,7 @@ def phase_sharded(free_before):
             if "loss" in case:
                 d32 = ref["bf16"]["loss_f32"]
                 dist = max(abs(r["loss"]["loss"] - d32) for r in ranks)
-                bound = max(1e-3, 2 * abs(ref["bf16"]["loss"] - d32))
+                bound = _dense_loss_bound(abs(ref["bf16"]["loss"] - d32))
                 entry.update(loss_vs_f32=dist, loss_bound=bound)
                 if not dist <= bound:
                     fails.append(f"(c) {label}: loss {dist} from float32, bound {bound}")
@@ -3399,7 +3429,7 @@ def phase_sharded(free_before):
 TRAIN_MESHES = (((2, 2), "baseline"), ((1, 4), "opt"))
 TRAIN_SHAPE = (4, 1024)           # the batch
 TRAIN_ACCUM = dict(f32=1, bf16=2)  # microbatches; f32 1 for the script's time (PERF.md §4)
-TRAIN_LAYERS = dict(bf16=2, f32=2)     # for the script's time (PERF.md §4)
+TRAIN_LAYERS = dict(bf16=2, f32=1)     # for the script's time (PERF.md §4; f32 2 → 1)
 TRAIN_STEPS = dict(f32=1, bf16=1)      # for the script's time (PERF.md §4)
 TRAIN_EVAL_SHAPE = (2, 512)       # the eval through K2 after the bf16 steps
 TRAIN_LIMIT = 900                 # seconds for the multi-rank run
@@ -3417,11 +3447,12 @@ TRAIN_BF16_LOSS = 1e-2
 TRAIN_BF16_NORM = 2e-2
 
 
-def _train_reference(cfg, tokens, eval_tokens, steps, accum, dev):
+def _train_reference(cfg, tokens, eval_tokens, steps, accum, dev, extra=None):
     """The one-rank train step on the card from SEED's parameters, donated
     as the ranks' are → losses, grad norms, the final state's m (on the
     card) and, with ``eval_tokens``, the eval loss through K2 on the
-    updated parameters; seconds."""
+    updated parameters; seconds.  ``extra``: the batch's other inputs
+    (numpy: vision embeddings, frames)."""
     import torch
 
     from repro_torch.launch.steps import make_train_step
@@ -3434,7 +3465,8 @@ def _train_reference(cfg, tokens, eval_tokens, steps, accum, dev):
     opt = AdamW(lr=warmup_cosine(3e-4, 2000, 100_000))
     state = opt.init(params)
     step = make_train_step(model, opt, accum=accum, donate=True)
-    batch = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    batch = {"tokens": torch.as_tensor(tokens, device=dev).long(),
+             **{k: torch.as_tensor(v, device=dev) for k, v in (extra or {}).items()}}
     out = dict(loss=[], grad_norm=[])
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(steps):
@@ -3622,10 +3654,10 @@ def phase_sharded_train(free_before):
 # time, PERF.md: 8 layers took 17–18 s a rank on the ranks).  No (2, 2) bf16 run at 64 layers: its weight gathers over
 # ``data`` would move about 3.5 GB a rank a pass through host memory.  (b)
 # and its float32 eval at 16 of 64 layers, for the script's time (PERF.md
-# §4).
+# §4); (c) one step (was 2), for phase 18's time.
 SSM = dict(arch="falcon-mamba-7b", meshes=((1, 4), (2, 2)), prompts=2, prompt_len=512,
            loss=(2, 1024), ticks=dict(f32=2, bf16=4), train=(4, 1024), accum=2,
-           steps=dict(f32=1, bf16=2), train_layers=4, bf16_layers=16, limit=900)
+           steps=dict(f32=1, bf16=1), train_layers=4, bf16_layers=16, limit=900)
 SSM_SEEDED = dict(decode_32k=dict(b=128, s_max=0, pos=32_000, seed=SEED + 41),
                   long_500k=dict(b=1, s_max=0, pos=524_287, seed=SEED + 43))
 # (e) K4 at the ranks' shapes: d_in 8 192 over model 4 and 2.
@@ -4010,7 +4042,9 @@ def phase_sharded_ssm(free_before):
 # (the sharded gather dispatch) on (1, 4) and (2, 2): the prefill of 2 ×
 # 512 (into caches of MOE["s_max"]), the loss of MOE["loss"], MOE["ticks"]
 # ["f32"] ticks fed from the prefill's caches with one rank's greedy
-# tokens, and on (2, 2) one train step (batch MOE["train"], accum 2);
+# tokens, and on (2, 2) one train step (batch MOE["train"], accum 2) at
+# MOE["train_layers"] (2 → 1 for phase 18's time: the step is its
+# expert stacks' float32 gathers over ``data``, 2.2 GB a layer);
 # (b) bf16 on (1, 4) under the baseline at MOE["bf16_layers"] (the memory
 # reckoning in PERF.md: 14.0 GB of parameters a rank at 48): the prefill of
 # phase 6's first 2 prompts, the loss of MOE["loss"], MOE["ticks"]["bf16"]
@@ -4026,7 +4060,7 @@ def phase_sharded_ssm(free_before):
 # (b) at 6.
 MOE = dict(arch="moonshot-v1-16b-a3b", meshes=((1, 4), (2, 2)), prompts=2, prompt_len=512,
            s_max=1024, loss=(2, 1024), ticks=dict(f32=2, bf16=4), train=(4, 1024), accum=2,
-           bf16_layers=6, opt_layers=2, limit=900)
+           bf16_layers=6, opt_layers=2, train_layers=1, limit=900)
 # Gates, fixed before the first run.  (a) logits, losses and ticks within
 # MOE_F32_TOL of one rank; the train step's loss within MOE_TRAIN_TOL and
 # its grad norm within MOE_TRAIN_TOL of itself.  (b) the prefill's logits
@@ -4095,7 +4129,8 @@ def _moe_routing(records):
 def _moe_references(cfg, prompts, loss_tokens, train_tokens, dev):
     """The one-rank model on the card from SEED's parameters: (a) f32 at 2
     layers: the prefill's logits and routing, MOE["ticks"]["f32"] greedy
-    ticks (tokens fed, logits), the loss and its routing, one train step;
+    ticks (tokens fed, logits), the loss and its routing, one train step
+    (at MOE["train_layers"]);
     (b) bf16 at MOE["bf16_layers"]: the same prefill, ticks and loss, and
     each in float32 throughout, layer by layer; (c) at MOE["opt_layers"]
     and MOE_OPT_CF: the prefill's logits and routing in bf16 (and in
@@ -4135,8 +4170,9 @@ def _moe_references(cfg, prompts, loss_tokens, train_tokens, dev):
             out[key]["ticks_f32"] = _ticks_f32(c, params, prompts, fed, dev).cpu()
         del params
         _free()
-    out["f32"]["train"] = _train_reference(cfg.with_(**MOE_F32), train_tokens, None, 1,
-                                           MOE["accum"], dev)
+    out["f32"]["train"] = _train_reference(cfg.with_(**dict(MOE_F32,
+                                                           n_layers=MOE["train_layers"])),
+                                           train_tokens, None, 1, MOE["accum"], dev)
     out["f32"]["train"]["m"] = _host_tree(out["f32"]["train"]["m"])   # the card's for the ranks
     _free()
     opt = dict(MOE_SERVE, n_layers=MOE["opt_layers"], capacity_factor=MOE_OPT_CF)
@@ -4198,13 +4234,15 @@ def _moe_first_tokens(logits, ref, key):
 
 
 def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=None, k4=None,
-                      logits_tol=MOE_F32_TOL):
+                      logits_tol=MOE_F32_TOL, loss_bound=None):
     """(a)/(b)/(c)/(d) of a prefill (and decode and loss) case → its report.
     ``tag``: the gate's letter in a failure (by ``key`` where None); ``k2``:
     K2's launches a prefill or eval should count (default one a layer);
     ``k4``: K4's in an eval (then none in a prefill; default unchecked);
     ``logits_tol``: the float32 prefill logits' bound (the loss's and the
-    ticks' stays MOE_F32_TOL)."""
+    ticks' stays MOE_F32_TOL); ``loss_bound``: the bf16 loss's bound on its
+    distance from float32, of one rank's (default SHARDED_BF16_FACTOR ×
+    it)."""
     import torch
 
     from repro_torch.distributed.sharding import decode_rules
@@ -4281,7 +4319,9 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=No
         out["ratio_vs_f32"] = out["ranks_vs_f32"] / out["one_rank_vs_f32"]
         if "loss" in case:
             loss = out["loss"]
-            if not (loss["vs_float32"] <= SHARDED_BF16_FACTOR * loss["one_rank_vs_float32"]
+            loss["bound"] = (loss_bound or (lambda d: SHARDED_BF16_FACTOR * d))(
+                loss["one_rank_vs_float32"])
+            if not (loss["vs_float32"] <= loss["bound"]
                     and loss["vs_one_rank"] <= TRAIN_BF16_LOSS):
                 fails.append(f"{tag} {label}: loss {loss['vs_float32']} from float32 against "
                              f"one rank's {loss['one_rank_vs_float32']}, "
@@ -4399,8 +4439,9 @@ def phase_sharded_moe(free_before):
 
     f32 = dict(MOE_SERVE, **MOE_F32)
     cases = [dict(mesh=mesh, cfg=f32, **serve("f32")) for mesh in MOE["meshes"]]
-    cases.append(dict(mesh=(2, 2), cfg=MOE_F32, train=dict(tokens=train_tokens, accum=MOE["accum"],
-                                                           steps=1, host=("m",))))
+    cases.append(dict(mesh=(2, 2), cfg=dict(MOE_F32, n_layers=MOE["train_layers"]),
+                      train=dict(tokens=train_tokens, accum=MOE["accum"], steps=1,
+                                 host=("m",))))
     cases.append(dict(mesh=(1, 4), cfg=dict(MOE_SERVE, n_layers=MOE["bf16_layers"]),
                       **serve("bf16")))
     opt = dict(n_layers=MOE["opt_layers"], capacity_factor=MOE_OPT_CF)
@@ -4472,9 +4513,10 @@ def phase_sharded_moe(free_before):
 # the ranks (PERF.md), so it waits for four cards; phases 14–16 run it,
 # the CPU tests hold the hybrid's train cells.  Cut for the script's time
 # (phase 17 took 125.8 s alone at first; PERF.md §4): (b) 16 → 8 layers
-# (the CPU tests hold two periods), its ticks 8 → 4, (c)'s ticks 4 → 2.
+# (the CPU tests hold two periods), its ticks 8 → 4, (c)'s ticks 4 → 2 →
+# 1 (the last for phase 18's time).
 HYBRID = dict(arch="jamba-v0.1-52b", prompts=2, prompt_len=512, s_max=1024, loss=(2, 1024),
-              ticks=dict(f32=4, bf16=4, gathered=2), layers=8,
+              ticks=dict(f32=4, bf16=4, gathered=1), layers=8,
               long=dict(b=1, s_max=524_288, pos=524_286, ticks=2, seed=SEED + 53),
               capacity_factor=8.0, limit=900)
 HYBRID_SERVE = dict(attn_impl="pallas", ssm_impl="pallas", remat=False)
@@ -4825,6 +4867,349 @@ def phase_sharded_hybrid(free_before):
     return out
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+# internvl2-1b and whisper-base at full width sharded over 4 ranks of the
+# one card (``launch/sharded.py``; gloo, host-staged, as phases 12–17):
+# the VLM's stream, vision prefix and tokens, in the ranks' blocks; the
+# encoder-decoder's encoder on a layout of its own 1 500 positions, its
+# output gathered once, the cross-attention on each rank's heads.
+# ``attn_impl="pallas"`` in every prefill and eval; the vision embeddings
+# and the frames drawn from the seed.  The one-rank references first, on
+# the card, from the same seeds.  (a) internvl2-1b in float32, all 24
+# layers, on (1, 4) (14 heads: every rank runs every head): the prefill
+# of 2 × (256 + 512) into caches of 1 024 positions, the loss of 2 × (256
+# + 768), 2 ticks from the prefill's caches; (b) on (2, 2) (7 heads and 1
+# kv head a rank): in float32 at ENCVLM["vlm"]["f32_layers"] layers the
+# prefill and the loss, in bf16 at all 24 layers the prefill, the eval
+# through K2, 2 ticks and one decode_32k tick (B 4, ``pos`` 32 000 of a
+# seeded 32 768-position cache); (c) one float32 train step under ``opt``
+# (``ACT_RULES_TRAIN_OPT``: 494 M parameters) on (1, 4) at 4 layers, 4 ×
+# (256 + 768); (d) whisper-base whole (6 + 6 layers) in float32 on (1, 4)
+# and (2, 2): the prefill of 2 × (1 500 frames, 128 tokens) into 448
+# positions (whisper's decoder length), the loss of 2 × 384 (K2 takes
+# sequences of whole 128-position blocks: 448 is not one), 2 ticks; (e)
+# whisper-base in bf16 on (1, 4): the prefill, the eval through K2, 2
+# ticks and one decode_32k tick (B 4, ``pos`` 32 000 of 32 768 positions,
+# ``ek``/``ev`` of 1 500); (f) whisper-base's float32 train step, whole:
+# one under the baseline on (2, 2), one under ``opt`` (small-DP: 97 M
+# parameters) on (1, 4).
+ENCVLM = dict(
+    vlm=dict(arch="internvl2-1b", prompts=2, prompt_len=512, s_max=1024, loss=(2, 768),
+             ticks=2, f32_layers=4, train=(4, 768), seed=SEED + 18),
+    encdec=dict(arch="whisper-base", prompts=2, prompt_len=128, s_max=448, loss=(2, 384),
+                ticks=2, train=(4, 448), seed=SEED + 19),
+    long=dict(b=4, s_max=32768, pos=32000, seed=SEED + 61), limit=600)
+ENCVLM_SERVE = dict(attn_impl="pallas", remat=False)
+ENCVLM_F32 = dict(param_dtype="float32", compute_dtype="float32")
+# Gates, fixed before the first run, as phases 13–17's.  Float32: the
+# prefill's logits within SHARDED_TOL of one rank, the loss and the ticks
+# within ENCVLM_F32_TOL.  bf16: the prefill's logits, each tick and the
+# decode_32k tick no farther from float32 than SHARDED_BF16_FACTOR × one
+# rank's, the first tokens equal or a near tie (phase 16's rule), the
+# eval's loss within TRAIN_BF16_LOSS of one rank's and no farther from
+# float32 than phase 13's bound (``_dense_loss_bound``: twice one rank's
+# distance, or 1e-3).  Changed after the first run: the loss was first
+# held to SHARDED_BF16_FACTOR × one rank's distance (phase 16's rule), and
+# (b)'s read 5.58e-4 against one rank's 2.54e-4 (2.2 ×), 3.0e-4 from one
+# rank's loss of 12.12, while the same run's float32 losses at 4 and 24
+# layers were 9.5e-7 from one rank's: a mean of 1 534 positions' bf16 sums
+# in another order, whose one-rank distance is one sample of that noise;
+# internvl2-1b's stack is the dense family's, whose loss phase 13 bounds
+# so.  Train steps by phase 14 (a):
+# the loss within TRAIN_TOL, the grad norm within TRAIN_TOL of itself,
+# every leaf of m within TRAIN_M_REL of its largest |m|.  (g) every rank's
+# ops equal to ``sharded_collectives``; K2 once a decoder layer in every
+# prefill and eval, never in a tick or a train step.
+ENCVLM_F32_TOL = 5e-5
+
+
+def _encvlm_inputs(cfg, tokens, rng):
+    """``tokens`` with the family's other input drawn from ``rng``, float32
+    standard normal: vision embeddings ``[B, 256, d]`` or frames ``[B,
+    1500, d]``."""
+    shape = ((cfg.n_vision_tokens, "vision_embeds") if cfg.family == "vlm"
+             else (cfg.enc_seq, "frames"))
+    return {"tokens": tokens, shape[1]: rng.standard_normal(
+        (len(tokens), shape[0], cfg.d_model), dtype=np.float32)}
+
+
+def _on(batch, dev):
+    """A numpy batch on the card, the tokens as integers."""
+    import torch
+
+    return {k: torch.as_tensor(v, device=dev).long() if k == "tokens"
+            else torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _encvlm_serve(model, params, data, spec, fed, dev):
+    """One rank's prefill of ``data["prompts"]`` into ``spec["s_max"]``
+    positions, ``spec["ticks"]`` ticks from its caches (greedy, or fed
+    ``fed``) and the loss of ``data["loss"]``."""
+    import torch
+
+    prompts = _on(data["prompts"], dev)
+    n0 = model._n_prefix() + prompts["tokens"].shape[1]
+    with torch.no_grad():
+        logits, caches = model.prefill(params, prompts, spec["s_max"])
+        picks, ticks, last = [], [], logits
+        for t in range(spec["ticks"]):
+            picks.append(last.argmax(-1)[:, None] if fed is None
+                         else torch.as_tensor(fed[:, t:t + 1], device=dev).long())
+            last, caches = model.decode(params, picks[-1], n0 + t, caches)
+            ticks.append(last.float().cpu())
+        del caches
+        loss = float(model.loss(params, _on(data["loss"], dev))[0])
+    return dict(logits=logits.float().cpu(), fed=torch.cat(picks, 1).cpu().numpy(),
+                ticks=torch.stack(ticks), loss=loss)
+
+
+def _encvlm_references(fam, cfg, data, dev):
+    """The one-rank model of one family on the card from SEED's parameters,
+    each leg's freed before the next: float32 at full depth ((a), (d)) and
+    for the VLM at ENCVLM["vlm"]["f32_layers"] ((b)); bf16 at full depth
+    ((b), (e)), and its prefill, ticks (fed one rank's tokens), loss and
+    decode_32k tick in float32 throughout (the parameters and the seeded
+    caches upcast); the float32 train step ((c) at 4 layers, (f)) → per
+    leg its logits, fed tokens, ticks and loss (bf16: ``*_f32`` too,
+    ``long``, ``long_f32``), ``train`` (m on the host)."""
+    import torch
+
+    from repro_torch.launch.sharded import seeded_caches
+    from repro_torch.models.model import Model
+
+    spec, long = ENCVLM[fam], ENCVLM["long"]
+    legs = [("f32", cfg.with_(**ENCVLM_SERVE, **ENCVLM_F32)), ("bf16", cfg.with_(**ENCVLM_SERVE))]
+    if fam == "vlm":
+        legs.insert(1, ("f32_4", cfg.with_(**ENCVLM_SERVE, **ENCVLM_F32,
+                                          n_layers=spec["f32_layers"])))
+    out = {}
+    for key, c in legs:
+        model = Model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        out[key] = r = _encvlm_serve(model, params, data, spec, None, dev)
+        if key == "bf16":
+            m32 = Model(c.with_(**ENCVLM_F32, attn_impl="xla"))
+            p32 = _up(params)
+            r32 = _encvlm_serve(m32, p32, data, spec, r["fed"], dev)
+            r.update(logits_f32=r32["logits"], loss_f32=r32["loss"], ticks_f32=r32["ticks"])
+            tok = torch.as_tensor(data["long"], device=dev).long()
+            with torch.no_grad():
+                caches = seeded_caches(model, long["b"], long["s_max"], long["seed"], dev)
+                c32 = {k: v.float() for k, v in caches.items()}
+                r["long"] = model.decode(params, tok, long["pos"], caches)[0].float().cpu()
+                del caches
+                r["long_f32"] = m32.decode(p32, tok, long["pos"], c32)[0].cpu()
+                del c32, p32
+        del params, model
+        _free()
+    c = cfg.with_(**ENCVLM_F32, **({"n_layers": spec["f32_layers"]} if fam == "vlm" else {}))
+    train = data["train"]
+    out["train"] = _train_reference(c, train["tokens"], None, 1, 1, dev,
+                                    extra={k: v for k, v in train.items() if k != "tokens"})
+    out["train"]["m"] = _host_tree(out["train"]["m"])
+    _free()
+    return out
+
+
+def _encvlm_cases(data, ref):
+    """Phase 18's rank cases → [(family, reference key, gate letter, case)]."""
+    long = {k: v for k, v in ENCVLM["long"].items() if k != "b"}
+    f32 = dict(ENCVLM_SERVE, **ENCVLM_F32)
+
+    def serve(fam, key, mesh, cfg, decode=True, tick_32k=False):
+        d, spec = data[fam], ENCVLM[fam]
+        case = dict(mesh=mesh, arch=spec["arch"], cfg=cfg, loss=dict(d["loss"]),
+                    prefill=dict(d["prompts"], s_max=spec["s_max"]))
+        if decode:
+            case["decode"] = [dict(tokens=ref[fam][key]["fed"])]
+        if tick_32k:
+            case["decode"].append(dict(long, tokens=d["long"]))
+        return case
+
+    def train(fam, mesh, policy, cfg):
+        return dict(mesh=mesh, arch=ENCVLM[fam]["arch"], policy=policy, cfg=cfg,
+                    train=dict(data[fam]["train"], steps=1, host=("m",)))
+
+    return [
+        ("vlm", "f32", "(a)", serve("vlm", "f32", (1, 4), f32)),
+        ("vlm", "f32_4", "(b)", serve("vlm", "f32_4", (2, 2),
+                                      dict(f32, n_layers=ENCVLM["vlm"]["f32_layers"]),
+                                      decode=False)),
+        ("vlm", "bf16", "(b)", serve("vlm", "bf16", (2, 2), ENCVLM_SERVE, tick_32k=True)),
+        ("vlm", "train", "(c)", train("vlm", (1, 4), "opt",
+                                      dict(ENCVLM_F32, n_layers=ENCVLM["vlm"]["f32_layers"]))),
+        ("encdec", "f32", "(d)", serve("encdec", "f32", (1, 4), f32)),
+        ("encdec", "f32", "(d)", serve("encdec", "f32", (2, 2), f32)),
+        ("encdec", "bf16", "(e)", serve("encdec", "bf16", (1, 4), ENCVLM_SERVE, tick_32k=True)),
+        ("encdec", "train", "(f)", train("encdec", (2, 2), "baseline", ENCVLM_F32)),
+        ("encdec", "train", "(f)", train("encdec", (1, 4), "opt", ENCVLM_F32)),
+    ]
+
+
+def _encvlm_long_checks(ranks, case, c, ref, tag, label, fails):
+    """(b)/(e)/(g) of the decode_32k tick (the case's second decode entry)."""
+    import torch
+
+    from repro_torch.distributed.sharding import decode_rules
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharded import assemble_tick, sharded_collectives
+
+    spec, mesh = ENCVLM["long"], dict(zip(("data", "model"), case["mesh"]))
+    want = sharded_collectives(c, mesh, decode_rules(Mesh(tuple(mesh), tuple(mesh.values()))),
+                               spec["b"], 1, 2, 2, "decode", s_max=spec["s_max"])
+    entries = [r["decode"][1] for r in ranks]
+    if any(ops != want for e in entries for ops in e["ops"]):
+        fails.append(f"(g) {label} decode_32k: a rank's ops differ from the formula")
+    got = assemble_tick(ranks, 1, 0, spec["b"], c.vocab_size)
+    one, f32 = ref["long"], ref["long_f32"]
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    rep = dict(pos=entries[0]["pos"], s_max=spec["s_max"], batch=spec["b"],
+               kv=[e["kv"] for e in entries], ms=[e["ms"] for e in entries],
+               staging_s=[e["staging_s"] for e in entries],
+               max_memory_allocated=[e["max_memory_allocated"] for e in entries],
+               k2_launches=[e["k2_launches"] for e in entries],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               ranks_vs_f32=err(got, f32), one_rank_vs_f32=err(one, f32),
+               ranks_vs_one_rank=err(got, one), bound_factor=SHARDED_BF16_FACTOR,
+               finite=bool(torch.isfinite(got).all()))
+    noise = (one - f32).abs().max(-1).values + (got - f32).abs().max(-1).values
+    pairs = zip(got.argmax(-1).tolist(), one.argmax(-1).tolist())
+    rep["near_tie_ok"] = [a == b or abs(float(f32[i, a] - f32[i, b])) <= float(noise[i])
+                          for i, (a, b) in enumerate(pairs)]
+    if not (rep["ranks_vs_f32"] <= SHARDED_BF16_FACTOR * rep["one_rank_vs_f32"]
+            and all(rep["near_tie_ok"]) and rep["finite"]):
+        fails.append(f"{tag} {label} decode_32k: {rep['ranks_vs_f32']} from float32 against one "
+                     f"rank's {rep['one_rank_vs_f32']}, near ties {rep['near_tie_ok']}, finite "
+                     f"{rep['finite']}")
+    return rep
+
+
+def _encvlm_train_checks(ranks, case, c, refs, tag, label, fails):
+    """(c)/(f)/(g) of a train case against the one-rank step."""
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.sharded import sharded_collectives
+
+    r0 = ranks[0]
+    want = sharded_collectives(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
+                               *case["train"]["tokens"].shape, 4, 4, "train", 1,
+                               r0["param_rules"])
+    if any(r["train"]["ops"] != want for r in ranks):
+        fails.append(f"(g) {label}: a rank's train ops differ from the formula")
+    loss_err = max(abs(r["train"]["loss"][0] - refs["loss"][0]) for r in ranks)
+    norm_err = max(abs(r["train"]["grad_norm"][0] - refs["grad_norm"][0]) / refs["grad_norm"][0]
+                   for r in ranks)
+    m_err = _m_errors(ranks, case["mesh"], refs["m"], r0["param_rules"], c)
+    finite = all(np.isfinite(r["train"]["loss"] + r["train"]["grad_norm"]).all() for r in ranks)
+    out = dict(rules=r0["rules"], param_rules=r0["param_rules"],
+               losses=[r["train"]["loss"] for r in ranks],
+               grad_norms=[r["train"]["grad_norm"] for r in ranks],
+               one_rank=dict(loss=refs["loss"], grad_norm=refs["grad_norm"],
+                             max_memory_allocated=refs["max_memory_allocated"],
+                             seconds=refs["seconds"]),
+               step_ms=[r["train"]["ms"] for r in ranks],
+               k2_launches=[r["train"]["k2_launches"] for r in ranks],
+               collectives=dict(count=len(want), wire_bytes=report_of(want).by_kind()),
+               init_s=[r["init_s"] for r in ranks],
+               params_allocated=[r["params_allocated"] for r in ranks],
+               max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+               loss_err=loss_err, grad_norm_rel_err=norm_err, m_rel_err_max=max(m_err.values()),
+               tolerance=dict(loss=TRAIN_TOL, grad_norm=TRAIN_TOL, m=TRAIN_M_REL))
+    if not (loss_err <= TRAIN_TOL and norm_err <= TRAIN_TOL
+            and out["m_rel_err_max"] <= TRAIN_M_REL and finite):
+        fails.append(f"{tag} {label}: loss {loss_err}, grad norm {norm_err}, m "
+                     f"{out['m_rel_err_max']} against one rank")
+    if any(k != 0 for k in out["k2_launches"]):
+        fails.append(f"(g) {label}: K2 launched {out['k2_launches']} times in the train step")
+    return out
+
+
+def _encvlm_checks(cases, res, ref, out):
+    """Phase 18's gates over the ranks' results ``res`` of ``cases``; each
+    case's report goes into ``out`` → the failures."""
+    from repro_torch.configs import get_config
+
+    fails = []
+    for i, (fam, key, tag, case) in enumerate(cases):
+        ranks = [r[i] for r in res]
+        c = get_config(case["arch"]).with_(**case["cfg"])
+        policy = case.get("policy", "baseline")
+        label = f"{fam}_{key}_{case['mesh'][0]}x{case['mesh'][1]}_{policy}"
+        if "train" in case:
+            out[label] = _encvlm_train_checks(ranks, case, c, ref[fam]["train"], tag, label,
+                                              fails)
+            continue
+        rep = _moe_serve_checks(ranks, case, c, ref[fam], key, label, fails, tag,
+                                logits_tol=SHARDED_TOL, loss_bound=_dense_loss_bound)
+        for j, entry in enumerate(case.get("decode", [])):
+            k2 = [r["decode"][j]["k2_launches"] for r in ranks]
+            if any(k != 0 for k in k2):
+                fails.append(f"(g) {label} decode {j}: K2 launched {k2} times")
+        if c.compute_dtype == "bfloat16":
+            ticks = rep["decode"]
+            if rep["ratio_vs_f32"] > SHARDED_BF16_FACTOR or any(
+                    a > SHARDED_BF16_FACTOR * o for a, o in zip(ticks["ranks_vs_f32"],
+                                                                ticks["one_rank_vs_f32"])):
+                fails.append(f"{tag} {label}: logits {rep['ranks_vs_f32']} and ticks "
+                             f"{ticks['ranks_vs_f32']} from float32 against one rank's "
+                             f"{rep['one_rank_vs_f32']} and {ticks['one_rank_vs_f32']}")
+            rep["long"] = _encvlm_long_checks(ranks, case, c, ref[fam][key], tag, label, fails)
+        out[label] = rep
+    return fails
+
+
+def phase_sharded_encdec_vlm(free_before):
+    """Phase 18: internvl2-1b and whisper-base sharded over 4 ranks of one
+    card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.serve import make_requests
+
+    t0 = time.perf_counter()
+    released = [_card_released(free_before)]
+    cuda = torch.device("cuda", 0)
+    data, ref = {}, {}
+    for fam in ("vlm", "encdec"):
+        spec = ENCVLM[fam]
+        cfg = get_config(spec["arch"])
+        rng = np.random.default_rng(spec["seed"])
+        prompts = np.stack([r.prompt for r in make_requests(cfg, spec["prompts"],
+                                                            spec["prompt_len"], 1, SEED)])
+        data[fam] = dict(prompts=_encvlm_inputs(cfg, prompts, rng),
+                         loss=_encvlm_inputs(cfg, rng.integers(0, cfg.vocab_size, spec["loss"]),
+                                             rng),
+                         train=_encvlm_inputs(cfg, rng.integers(0, cfg.vocab_size,
+                                                                spec["train"]), rng),
+                         long=rng.integers(0, cfg.vocab_size, (ENCVLM["long"]["b"], 1)))
+        ref[fam] = _encvlm_references(fam, cfg, data[fam], cuda)
+    ref_s = time.perf_counter() - t0
+    _free()
+    released.append(_card_released(free_before))
+
+    cases = _encvlm_cases(data, ref)
+    t1 = time.perf_counter()
+    res = run_ranks("repro_torch.launch.sharded:run", 4,
+                    dict(device="cuda:0", seed=SEED, cases=[c for *_, c in cases]),
+                    timeout_s=ENCVLM["limit"],
+                    env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t1
+    released.append(_card_released(free_before))
+
+    out = dict(config=ENCVLM, reference_s=ref_s, ranks_s=ranks_s,
+               reference_losses={fam: {k: r["loss"] for k, r in ref[fam].items() if "loss" in r}
+                                 for fam in ref})
+    fails = _encvlm_checks(cases, res, ref, out)
+    out["released_s"] = released
+    out["phase_s"] = time.perf_counter() - t0
+    log("sharded_encdec_vlm", **out)
+    if fails:
+        raise AssertionError(f"phase 18: {fails}")
+    return out
+
+
 _ATTENTION_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
@@ -4879,7 +5264,22 @@ def kernel_times() -> int:
     return 0
 
 
+def _bytecode_cache():
+    """Compiled Python under ``build/pycache`` for this process and every
+    process it starts (the ranks, the trainer's legs, the dry runs): the
+    card's machine sets ``PYTHONDONTWRITEBYTECODE``, so each process
+    compiled every module it imported anew; importing torch with
+    ``torch._dynamo`` (a checkpointed step's first call) took 20.5–23.0 s a
+    process there, 10.7–12.8 s from the cache (PERF.md §6)."""
+    prefix = os.path.join(HERE, "build", "pycache")
+    os.makedirs(prefix, exist_ok=True)
+    sys.pycache_prefix, sys.dont_write_bytecode = prefix, False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main() -> int:
+    _bytecode_cache()
     import torch
 
     if sys.argv[1:] == ["--kernel-times"]:
@@ -4904,9 +5304,14 @@ def main() -> int:
         phase_device()
         phase_sharded_hybrid(torch.cuda.mem_get_info()[0])
         return 0
+    if sys.argv[1:] == ["--sharded-encdec-vlm"]:
+        phase_device()
+        phase_sharded_encdec_vlm(torch.cuda.mem_get_info()[0])
+        return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded "
-                         "| --sharded-ssm | --sharded-moe | --sharded-hybrid]")
+                         "| --sharded-ssm | --sharded-moe | --sharded-hybrid "
+                         "| --sharded-encdec-vlm]")
     wall = {}
 
     def timed(phase, *args):
@@ -4934,6 +5339,7 @@ def main() -> int:
     sharded_ssm = timed(phase_sharded_ssm, free)
     sharded_moe = timed(phase_sharded_moe, free)
     sharded_hybrid = timed(phase_sharded_hybrid, free)
+    sharded_encdec_vlm = timed(phase_sharded_encdec_vlm, free)
     log("wall", phases_s=wall, total_s=time.perf_counter() - t_start)
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
@@ -4975,7 +5381,11 @@ def main() -> int:
                         launches_sharded_moe_serve_path=sharded_moe[
                             "bf16_1x4_baseline"]["prefill"]["k2_launches"][0],
                         launches_sharded_hybrid_serve_path=sharded_hybrid[
-                            "bf16_1x4_baseline"]["prefill"]["k2_launches"][0]),
+                            "bf16_1x4_baseline"]["prefill"]["k2_launches"][0],
+                        launches_sharded_vlm_serve_path=sharded_encdec_vlm[
+                            "vlm_bf16_2x2_baseline"]["prefill"]["k2_launches"][0],
+                        launches_sharded_encdec_serve_path=sharded_encdec_vlm[
+                            "encdec_bf16_1x4_baseline"]["prefill"]["k2_launches"][0]),
         _attention_entry("flash_decode", attn["flash_decode"], serve["k3_launches"],
                          launches_sharded_decode_path=sharded["bf16_1x4"]["decode"]["ticks"][
                              "k3_launches"][0]), {

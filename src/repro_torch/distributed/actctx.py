@@ -11,14 +11,15 @@ that resolves on a larger mesh raises.
 
 On a rank mesh (``launch/mesh.py::_make_mesh``) each rank holds its block
 of every tensor, and the layers move the blocks themselves.  Two readers
-act on the context there.  The dense, MoE, SSM and hybrid models
-(``models/model.py``) take their sharded path under the rules' layout of
-the residual stream
+act on the context there.  Every model family (``models/model.py``)
+takes its sharded path under the rules' layout of the residual stream
 (:func:`rank_layout`: the batch over the rules' ``batch`` axes, the
-sequence over ``model`` where the rules put it there), each parameter a
-block by the context's ``param_rules`` (``PARAM_RULES``, or the small-DP
-policy's ``{}``: every leaf whole); the :class:`RankLayout` it hands the
-layers issues that path's collectives.  Under the decode rules
+sequence over ``model`` where the rules put it there; a VLM's stream holds
+its vision prefix, and an encoder-decoder's encoder and decoder each take
+the layout of their own sequence, one :func:`rank_layout` call each), each
+parameter a block by the context's ``param_rules`` (``PARAM_RULES``, or
+the small-DP policy's ``{}``: every leaf whole); the :class:`RankLayout`
+it hands the layers issues that path's collectives.  Under the decode rules
 (``sharding.decode_rules``) the same layout holds one token a row, the
 sequence whole, and :func:`cache_layout` adds the decode cache's block of
 positions (``kv_seq`` over ``model``), or of the mamba states' channels
@@ -139,8 +140,7 @@ def constrain(
 
 @dataclass(frozen=True)
 class RankLayout:
-    """Where a dense, MoE, SSM or hybrid model's tensors lie on the ranks
-    of a rank mesh.
+    """Where a model's tensors lie on the ranks of a rank mesh.
 
     The residual stream ``[B, S, d]`` is split along the batch over the
     mesh axes ``batch`` (``()``: every rank holds the whole batch) and,
@@ -352,14 +352,21 @@ def cache_layout(lay: RankLayout, decl, rules: Dict[str, Any]) -> RankLayout:
     "head_dim")``), ``kv_seq`` over ``model`` where the decode rules put it
     there and it divides, else whole; a mamba state (``conv`` or ``h``),
     ``d_inner`` over ``model`` where it divides, as the parameters split
-    it.  Raises where the cache's batch would lie otherwise than the
-    residual stream's, its positions or channels over another axis, its kv
-    heads split, or its channels otherwise than the parameters' (the layer
-    runs on the parameters' block)."""
+    it; a cross-attention cache ``[L, B, enc_seq, nkv, hd]`` (its positions
+    declared ``None``), every position and kv head: ``lay`` as it is.
+    Raises where the cache's batch would lie otherwise than the residual
+    stream's, its positions or channels over another axis, its kv heads
+    split, or its channels otherwise than the parameters' (the layer runs
+    on the parameters' block)."""
     spec = spec_for(decl.shape, decl.axes, lay.mesh, rules) + (None,) * len(decl.shape)
     batch = spec[1] if isinstance(spec[1], tuple) else (spec[1],) if spec[1] else ()
-    at = decl.axes.index("kv_seq" if "kv_seq" in decl.axes else "d_inner")
+    at = next((decl.axes.index(a) for a in ("kv_seq", "d_inner") if a in decl.axes), None)
     rest = [e for i, e in enumerate(spec[:len(decl.shape)]) if i not in (1, at)]
+    if at is None:
+        if batch != lay.batch or any(rest):
+            raise NotImplementedError(f"cross caches by {spec[:len(decl.shape)]} beside the "
+                                      f"batch over {lay.batch}")
+        return lay
     params = spec_for((decl.shape[at],), ("d_inner",), lay.mesh, lay.param_rules)
     if (batch != lay.batch or spec[at] not in (None, "model") or any(rest)
             or (decl.axes[at] == "d_inner" and (spec[at],) != (params + (None,))[:1])):

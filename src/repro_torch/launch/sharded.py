@@ -1,4 +1,4 @@
-"""Sharded runs of a dense, MoE, SSM or hybrid model over a rank mesh:
+"""Sharded runs of a model of any family over a rank mesh:
 what each rank runs for a train step, ``Model.prefill``, decode ticks and
 ``Model.loss`` under the baseline, ``opt`` and small-DP policies, and the
 collectives they issue, by formula.  An MoE layer issues, under the
@@ -14,11 +14,14 @@ slot order, each slot its own family's and its own gather over ``data``
 (``layer``, of that slot's leaves alone); its checkpointed recomputation
 re-issues every slot's up to the period's last saved tensor (all but the
 last slot's output collective).  A tick whose batch does not split over
-``data`` (an SSM or hybrid, ``stationary``) gathers no weights: each slot
-sums its in-projections' float32 partial products over ``data``
-(``attn/in``, ``mamba/in``, ``mlp/in``, ``moe/route`` with
+``data`` (a dense, VLM, SSM or hybrid model, ``stationary``) gathers no
+weights: each slot sums its in-projections' float32 partial products over
+``data`` (``attn/in``, ``mamba/in``, ``mlp/in``, ``moe/route`` with
 ``moe/experts``) and gathers its output's block of ``d_model`` over it
-(``attn/data``, ``mamba/data``, ``mlp/data``, ``moe/data``).
+(``attn/data``, ``mamba/data``, ``mlp/data``, ``moe/data``).  A VLM's
+stream holds its vision prefix; an encoder-decoder's encoder issues its
+own section first (``enc/in``, its layers, ``enc/out``) and each decoder
+layer the cross-attention's ops (``xattn/in``, ``xattn/out``).
 
 :func:`run` is a target of ``distributed/ranks.py::run_ranks``: every rank
 calls it with the same payload, and for each case of ``payload["cases"]``
@@ -33,10 +36,13 @@ names by its entries, in this order: ``"train": {"tokens": [B, S],
 "steps": n, "accum": a, "host": ...}``, ``"grad": {"tokens": [B, S]}``
 (the loss's gradient and its whole norm, no optimizer), ``"prefill":
 {"tokens": [B, S],
-"s_max": ... (default S), "reps": ..., "routing": ...}``, ``"decode":
-[entry, ...]`` (:func:`_decode`) and ``"loss": {"tokens": ...,
-"loss_mask": ... (optional), "cfg": ... (optional), "reps": ...,
-"routing": ...}`` (numpy, the whole batch), the later ones on the
+"s_max": ... (default the stream's length), "reps": ..., "routing":
+...}``, ``"decode": [entry, ...]`` (:func:`_decode`) and ``"loss":
+{"tokens": ..., "loss_mask": ... (optional), "cfg": ... (optional),
+"reps": ..., "routing": ...}`` (numpy, the whole batch; each of
+``"train"``, ``"grad"``, ``"prefill"`` and ``"loss"`` with a VLM's
+``vision_embeds`` or an encoder-decoder's ``frames`` beside its tokens,
+:func:`_batch`), the later ones on the
 parameters the train steps left (``routing``: return the MoE layers'
 routing, ``models/moe.py::recording``).  The
 decode entries run under ``policy_rules``' rules for a decode cell
@@ -69,12 +75,12 @@ from ..distributed import actctx
 from ..distributed.collectives import all_gather, staging
 from ..distributed.sharding import PARAM_RULES, decode_rules, rank_shard, spec_for
 from ..models.attention import rank_kv_heads
-from ..models.model import Model
+from ..models.encdec import dec_layer_defs
+from ..models.model import STATIONARY_FAMILIES, Model
 from ..models import moe
 from ..models.params import dtype_of, flatten, param_axes, unflatten
 from ..models.transformer import (
     _attn_cache_defs,
-    _mixer_cache_defs,
     _one_layer_defs,
     _units,
     _without,
@@ -92,11 +98,12 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
                         accum: int = 1, param_rules=None, s_max=None) -> List[Op]:
     """The collectives one sharded ``Model.prefill`` (``step="prefill"``),
     ``Model.loss`` (``"loss"``), train step (``"train"``, ``accum``
-    microbatches) of a ``[b, s]`` batch, or decode tick (``"decode"``) of
-    a ``[b, 1]`` token, issues on a rank, in order, for parameters of
-    ``param_bytes`` an element (by ``param_rules``, default
+    microbatches) of a ``[b, s]`` batch of tokens, or decode tick
+    (``"decode"``) of a ``[b, 1]`` token, issues on a rank, in order, for
+    parameters of ``param_bytes`` an element (by ``param_rules``, default
     ``PARAM_RULES``) and activations of ``act_bytes``.  ``s_max``: the
-    caches' length (default ``s``).
+    caches' length (default the stream's, a VLM's vision prefix included;
+    a tick's ``s``).
 
     Forward: the embedding's gather over ``data`` and its sum into the
     residual stream's block; per layer (per slot of a hybrid period, the
@@ -112,9 +119,18 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     (``prefill/cache``: an all-to-all over ``model``, an all-gather where
     the positions do not split, none where the q heads do not, nor for an
     SSM's states); the loss's vocab-parallel combination over ``model``
-    and its sums over the batch's axes.  A decode tick
-    (:func:`_decode_sections`, ``rules`` the decode rules) has no sequence
-    to gather, and the launcher's greedy pick ends it.
+    and its sums over the batch's axes.  A VLM's stream holds its
+    ``n_vision_tokens`` before the tokens.  An encoder-decoder runs its
+    encoder first on the layout of ``enc_seq`` positions (``enc_in`` and
+    ``ln_enc`` gathered over ``data``, ``enc/in``; its layers as the
+    dense family's, not causal; its output gathered over ``model``,
+    ``enc/out``), then its decoder, whose embedding sums in the
+    parameters' dtype and whose layers add the cross-attention's sequence
+    gather and row-parallel sum (``xattn/in``, ``xattn/out``) after the
+    self-attention's; its prefill moves the cross caches too
+    (``prefill/xcache``: the rank's kv heads gathered over ``model``).  A
+    decode tick (:func:`_decode_sections`, ``rules`` the decode rules) has
+    no sequence to gather, and the launcher's greedy pick ends it.
 
     A train step runs, for each microbatch, the loss's forward and then
     its backward: each op's transpose (``distributed/collectives.py``) in
@@ -130,27 +146,29 @@ def sharded_collectives(cfg: ModelConfig, mesh_shape: dict, rules: dict, b: int,
     mesh = Mesh(tuple(mesh_shape), tuple(mesh_shape.values()))
     param_rules = PARAM_RULES if param_rules is None else param_rules
     defs = Model(cfg).defs()
-    s_max = s if s_max is None else s_max
-    n_units = _units(cfg)[0]
     if step == "decode":
-        embed, unit, head = _decode_sections(cfg, defs, mesh, rules, param_rules, b, s_max,
-                                             param_bytes, act_bytes)
-        return embed + unit * n_units + head
+        embed, unit, head = _decode_sections(cfg, defs, mesh, rules, param_rules, b,
+                                             s if s_max is None else s_max, param_bytes,
+                                             act_bytes)
+        return embed + unit * _units(cfg)[0] + head
     if step != "train":
-        embed, unit, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b, s,
-                                           param_bytes, act_bytes, step, s_max)
-        return embed + unit * n_units + head
-    embed, unit, head = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s,
-                                       param_bytes, act_bytes, "loss")
-    # the unit's output collective, after its last saved tensor
-    tail = unit[-1:] if unit and unit[-1][3] in ("mlp/out", "mamba/out", "moe/out") else []
-    rest = unit[:len(unit) - len(tail)]
-    again = [(k, n, g, f"{path}/bwd") for k, n, g, path in rest] if cfg.remat else []
-    unit_bwd = ([_transpose(op) for op in tail] + again
-                + [_transpose(op) for op in reversed(_with_gradient(rest))])
-    backward = ([_transpose(op) for op in reversed(head)] + unit_bwd * n_units
-                + [_transpose(op) for op in reversed(embed)])
-    ops = (embed + unit * n_units + head + backward) * accum
+        segments = _loss_sections(cfg, defs, mesh, rules, param_rules, b, s, param_bytes,
+                                  act_bytes, step, s_max)
+        return [op for ops, n in segments for op in ops * (n or 1)]
+    segments = _loss_sections(cfg, defs, mesh, rules, param_rules, b // accum, s, param_bytes,
+                              act_bytes, "loss")
+    backward = []
+    for ops, n in reversed(segments):
+        if n is None:
+            backward += [_transpose(op) for op in reversed(ops)]
+            continue
+        # the unit's output collective, after its last saved tensor
+        tail = ops[-1:] if ops and ops[-1][3] in ("mlp/out", "mamba/out", "moe/out") else []
+        rest = ops[:len(ops) - len(tail)]
+        again = [(k, nb, g, f"{path}/bwd") for k, nb, g, path in rest] if cfg.remat else []
+        backward += ([_transpose(op) for op in tail] + again
+                     + [_transpose(op) for op in reversed(_with_gradient(rest))]) * n
+    ops = ([op for seg, n in segments for op in seg * (n or 1)] + backward) * accum
     grad_bytes = 4 if accum > 1 else param_bytes
     leaves = [(p, actctx.replicated_axes(p, mesh, param_rules)) for _, p in flatten(defs)]
     sums: dict = {}
@@ -255,7 +273,10 @@ def _layer_defs(cfg: ModelConfig, mixer: str, ffn: str, mesh, keep_d: bool = Fal
     """The leaves a layer's (or slot's) gather over ``data`` takes
     (``transformer.gather_layer``): all but the ``moe`` leaves it leaves
     in place (``transformer.moe_kept_leaves``; ``keep_d``: a decode
-    tick's ``experts_stationary``)."""
+    tick's ``experts_stationary``); an encoder-decoder's decoder layer's
+    all of them."""
+    if cfg.family == "encdec":
+        return dec_layer_defs(cfg)
     defs = _one_layer_defs(cfg, mixer, ffn)
     kept = moe_kept_leaves(cfg, ffn, mesh, keep_d)
     return _without(defs, kept) if kept else defs
@@ -312,8 +333,10 @@ def _head_defs(cfg: ModelConfig, defs) -> dict:
 def _cache_op(cfg: ModelConfig, mesh, param_rules, b_loc: int, s_max: int,
               act_bytes: int) -> List[Op]:
     """The prefill's caches moved to the decode layout
-    (``Model._kv_blocks``): one op for every attention layer's k and v, none
-    for the mamba states."""
+    (``Model._kv_blocks``): one op for every attention layer's k and v, and
+    one for an encoder-decoder's ``ek`` and ``ev`` (an all-gather over
+    ``model``: every encoder position); none for the mamba states, nor
+    where the q heads do not split."""
     n_model = mesh.shape.get("model", 1)
     n_units, slots = _units(cfg)
     n_attn = n_units * sum(mixer == "attn" for _, mixer, _ in slots)
@@ -324,10 +347,12 @@ def _cache_op(cfg: ModelConfig, mesh, param_rules, b_loc: int, s_max: int,
         heads //= n_model
     k = _attn_cache_defs(cfg, b_loc, s_max)["k"]
     kv_split = (spec_for(k.shape, k.axes, mesh, decode_rules(mesh)) + (None,) * 2)[1] == "model"
-    nbytes = 2 * n_attn * b_loc * s_max * heads * cfg.resolved_head_dim * act_bytes
-    if kv_split:
-        return [("all-to-all", nbytes, n_model, "prefill/cache")]
-    return [("all-gather", nbytes * n_model, n_model, "prefill/cache")]
+    nbytes = 2 * n_attn * b_loc * heads * cfg.resolved_head_dim * act_bytes
+    ops = ([("all-to-all", nbytes * s_max, n_model, "prefill/cache")] if kv_split
+           else [("all-gather", nbytes * s_max * n_model, n_model, "prefill/cache")])
+    if cfg.family == "encdec":
+        ops.append(("all-gather", nbytes * cfg.enc_seq * n_model, n_model, "prefill/xcache"))
+    return ops
 
 
 def _dtbc(cfg: ModelConfig, mesh, param_rules, rows: int) -> List[Op]:
@@ -344,16 +369,17 @@ def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s
                      param_bytes: int, act_bytes: int):
     """(the embedding's ops, one unit's — a layer's, or a hybrid period's
     slot by slot —, the head's and the greedy pick's) of a decode tick
-    (``attention._decode_attention_sharded``, ``ssm.mamba_decode``); an
-    SSM or hybrid whose batch does not split over ``data`` gathers no
-    weights (``actctx.keeps_d_blocks``): the embedding's and each slot's
-    output block of ``d_model`` gathered over ``data``, the in-projections'
-    and the head's float32 partial sums over it."""
+    (``attention._decode_attention_sharded``, ``ssm.mamba_decode``, an
+    encoder-decoder's cross-attention on the rank's heads); a model of
+    ``STATIONARY_FAMILIES`` whose batch does not split over ``data``
+    gathers no weights (``actctx.keeps_d_blocks``): the embedding's and
+    each slot's output block of ``d_model`` gathered over ``data``, the
+    in-projections' and the head's float32 partial sums over it."""
     batch, _ = actctx.residual_axes(b, 1, cfg.d_model, mesh, rules)
     n_model, n_data = mesh.shape.get("model", 1), mesh.shape.get("data", 1)
     b_loc = b // math.prod(mesh.shape[a] for a in batch)
-    # an SSM or hybrid whose batch does not split over data keeps its d_model blocks
-    keep = cfg.family in ("ssm", "hybrid") and actctx.keeps_d_blocks(
+    # a batch that does not split over data keeps the d_model blocks in place
+    keep = cfg.family in STATIONARY_FAMILIES and actctx.keeps_d_blocks(
         actctx.RankLayout(mesh, batch, False, b, 1, param_rules), cfg.d_model)
     d = cfg.d_model // (n_data if keep else 1)
 
@@ -375,7 +401,9 @@ def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s
         return [] if keep else _gather_params(tree, path, mesh, param_rules, param_bytes)
 
     embed = (gather_params({"embed": defs["embed"]}, "embed")
-             + to_stream("vocab", cfg.vocab_size, "embed") + whole_d("embed/data"))
+             + to_stream("vocab", cfg.vocab_size, "embed", _embed_bytes(cfg, param_bytes,
+                                                                       act_bytes))
+             + whole_d("embed/data"))
     keep_d = (not moe.a2a_on_ranks(cfg, mesh)
               and actctx.keeps_expert_blocks(mesh, param_rules, cfg.d_model))
     unit = []
@@ -401,6 +429,8 @@ def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s
                          ("reduce-scatter", b_loc * nq // n_model * hd * 4, n_model, "attn/pv")
                          if heads else ("all-reduce", b_loc * nq * hd * 4, n_model, "attn/pv")]
             unit += to_stream("heads", nq, "attn/out") + whole_d("attn/data")
+        if cfg.family == "encdec":
+            unit += to_stream("heads", cfg.n_heads, "xattn/out")
         if ffn == "mlp":
             f_loc = cfg.d_ff // (n_model if split("d_ff", cfg.d_ff) else 1)
             unit += (contract(f_loc * (2 if cfg.mlp_kind == "swiglu" else 1), "mlp/in")
@@ -416,18 +446,24 @@ def _decode_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s
     return embed, unit, head
 
 
+def _embed_bytes(cfg: ModelConfig, param_bytes: int, act_bytes: int) -> int:
+    """The bytes of an element of the embedding's sum into the stream: the
+    parameters' dtype for an encoder-decoder (its positions are added
+    before the cast, ``Model._embed``), else the compute dtype."""
+    return param_bytes if cfg.family == "encdec" else act_bytes
+
+
 def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: int,
-                   param_bytes: int, act_bytes: int, step: str, s_max: int = 0):
-    """(the embedding's ops, one unit's — a layer's, or a hybrid period's
-    slot by slot —, the head's and the loss's) of a forward pass
-    (:func:`sharded_collectives`); a prefill's head section ends with its
-    caches' move to the decode layout."""
-    batch, seq_axis = actctx.residual_axes(b, s, cfg.d_model, mesh, rules)
-    seq = seq_axis == "model"
-    n_model = mesh.shape.get("model", 1)
-    n_batch = math.prod(mesh.shape[a] for a in batch)
-    b_loc, s_loc, d = b // n_batch, s // n_model if seq else s, cfg.d_model
-    stream = b_loc * s * d * act_bytes
+                   param_bytes: int, act_bytes: int, step: str, s_max=None):
+    """A forward pass (:func:`sharded_collectives`) of ``[b, s]`` tokens as
+    segments ``[(ops, repeats)]``: ``repeats`` None for a section that runs
+    once (an embedding's, the encoder's output gather, the head's and the
+    loss's, or the prefill's, which ends with its caches' move to the
+    decode layout), the number of units for one unit's ops (a layer's, or
+    a hybrid period's slot by slot)."""
+    n_model, d = mesh.shape.get("model", 1), cfg.d_model
+    stream_s = s + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    s_max = stream_s if s_max is None else s_max
 
     def gather_params(tree: dict, path: str) -> List[Op]:
         return _gather_params(tree, path, mesh, param_rules, param_bytes)
@@ -435,42 +471,70 @@ def _loss_sections(cfg: ModelConfig, defs, mesh, rules, param_rules, b: int, s: 
     def split(axis: str, n: int) -> bool:
         return _split(param_rules, mesh, axis, n)
 
-    def to_stream(axis: str, n: int, path: str, nbytes: int = act_bytes) -> List[Op]:
-        if not split(axis, n):
-            return []
-        if seq:
-            return [("reduce-scatter", b_loc * s_loc * d * nbytes, n_model, path)]
-        return [("all-reduce", b_loc * s * d * nbytes, n_model, path)]
+    def stack(seq_len: int, slots, layer_defs=None, cross=False):
+        """((its batch's ranks, rows a rank, stream bytes a rank), one
+        unit's ops, ``to_stream`` and ``gather_seq``) of a stack over ``[b,
+        seq_len]``; ``cross``: each layer's cross-attention after its
+        self-attention."""
+        batch, seq_axis = actctx.residual_axes(b, seq_len, d, mesh, rules)
+        seq = seq_axis == "model"
+        n_batch = math.prod(mesh.shape[a] for a in batch)
+        b_loc = b // n_batch
+        s_loc = seq_len // n_model if seq else seq_len
+        stream = b_loc * seq_len * d * act_bytes
 
-    def gather_seq(nbytes: int, path: str) -> List[Op]:
-        return [("all-gather", nbytes, n_model, path)] if seq else []
+        def to_stream(axis: str, n: int, path: str, nbytes: int = act_bytes) -> List[Op]:
+            if not split(axis, n):
+                return []
+            if seq:
+                return [("reduce-scatter", b_loc * s_loc * d * nbytes, n_model, path)]
+            return [("all-reduce", b_loc * seq_len * d * nbytes, n_model, path)]
 
+        def gather_seq(nbytes: int, path: str) -> List[Op]:
+            return [("all-gather", nbytes, n_model, path)] if seq else []
+
+        unit = []
+        for _, mixer, ffn in slots:
+            unit += gather_params(layer_defs or _layer_defs(cfg, mixer, ffn, mesh), "layer")
+            if mixer == "mamba":
+                unit += (gather_seq(stream, "mamba/in")
+                         + _dtbc(cfg, mesh, param_rules, b_loc * seq_len)
+                         + to_stream("d_inner", cfg.d_inner, "mamba/out", 4))
+            else:
+                unit += gather_seq(stream, "attn/in") + to_stream("heads", cfg.n_heads, "attn/out")
+            if cross:
+                unit += (gather_seq(stream, "xattn/in")
+                         + to_stream("heads", cfg.n_heads, "xattn/out"))
+            if ffn == "mlp":
+                unit += gather_seq(stream, "mlp/in") + to_stream("d_ff", cfg.d_ff, "mlp/out")
+            elif ffn == "moe":
+                unit += _moe_ops(cfg, mesh, rules, param_rules, b, seq_len, seq, batch,
+                                 param_bytes, act_bytes)
+        return (n_batch, b_loc, stream), unit, to_stream, gather_seq
+
+    segments = []
+    if cfg.family == "encdec":
+        (_, _, enc), enc_unit, _, enc_gather = stack(
+            cfg.enc_seq, [(None, "attn", "mlp")], _one_layer_defs(cfg, "attn", "mlp"))
+        segments += [(gather_params({k: defs[k] for k in ("enc_in", "ln_enc")}, "enc/in"), None),
+                     (enc_unit, cfg.n_enc_layers), (enc_gather(enc, "enc/out"), None)]
+    (n_batch, b_loc, stream), unit, to_stream, gather_seq = stack(
+        stream_s, _units(cfg)[1], cross=cfg.family == "encdec")
     embed = (gather_params({"embed": defs["embed"]}, "embed")
-             + to_stream("vocab", cfg.vocab_size, "embed"))
-    unit = []
-    for _, mixer, ffn in _units(cfg)[1]:
-        unit += gather_params(_layer_defs(cfg, mixer, ffn, mesh), "layer")
-        if mixer == "mamba":
-            unit += (gather_seq(stream, "mamba/in") + _dtbc(cfg, mesh, param_rules, b_loc * s)
-                     + to_stream("d_inner", cfg.d_inner, "mamba/out", 4))
-        else:
-            unit += gather_seq(stream, "attn/in") + to_stream("heads", cfg.n_heads, "attn/out")
-        if ffn == "mlp":
-            unit += gather_seq(stream, "mlp/in") + to_stream("d_ff", cfg.d_ff, "mlp/out")
-        elif ffn == "moe":
-            unit += _moe_ops(cfg, mesh, rules, param_rules, b, s, seq, batch, param_bytes,
-                             act_bytes)
+             + to_stream("vocab", cfg.vocab_size, "embed",
+                         _embed_bytes(cfg, param_bytes, act_bytes)))
+    segments += [(embed, None), (unit, _units(cfg)[0])]
     head_params = gather_params(_head_defs(cfg, defs), "head")
     if step == "prefill":
         last = gather_seq(b_loc * n_model * d * act_bytes, "prefill/last")
         cache = _cache_op(cfg, mesh, param_rules, b_loc, s_max, act_bytes)
-        return embed, unit, last + head_params + cache
+        return segments + [(last + head_params + cache, None)]
     head = gather_seq(stream, "loss/x") + head_params
     if split("vocab", cfg.vocab_size):
         head.append(("all-gather", n_model * 2 * b_loc * (s - 1) * 4, n_model, "loss/vocab"))
     if n_batch > 1:
         head.append(("all-reduce", 2 * 4, n_batch, "loss/mean"))
-    return embed, unit, head
+    return segments + [(head, None)]
 
 
 def _params(case: dict, mesh, model: Model, device, param_rules):
@@ -522,6 +586,17 @@ def _staging_since(before: dict) -> dict:
     return {k: staging[k] - before[k] for k in staging}
 
 
+def _batch(entry: dict, device) -> dict:
+    """The batch of an entry (numpy, the whole batch): its ``tokens`` and,
+    where given, ``frames``, ``vision_embeds`` and ``loss_mask``, on the
+    device."""
+    batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
+    for key in ("frames", "vision_embeds", "loss_mask"):
+        if key in entry:
+            batch[key] = torch.as_tensor(entry[key]).to(device)
+    return batch
+
+
 def _train(model: Model, params, entry: dict, device, carry: dict):
     """``steps`` train steps (``launch/steps.py::make_train_step``, AdamW
     with ``build_cell``'s schedule, ``accum`` microbatches, parameters and
@@ -533,7 +608,7 @@ def _train(model: Model, params, entry: dict, device, carry: dict):
     opt = AdamW(lr=warmup_cosine(3e-4, 2000, 100_000))
     state = opt.init(params)
     step = make_train_step(model, opt, accum=entry.get("accum", 1), donate=True)
-    batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
+    batch = _batch(entry, device)
     out = dict(loss=[], grad_norm=[], ms=[])
     _launches(reset=True)
     for _ in range(entry.get("steps", 1)):
@@ -556,7 +631,7 @@ def _grad(model: Model, params, entry: dict, device, carry: dict):
     launches; on the card ``max_memory_allocated`` since it began)."""
     from .steps import make_grad_step
 
-    batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
+    batch = _batch(entry, device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _launches(reset=True)
@@ -579,20 +654,20 @@ def _cols(lay, v_loc: int, cfg: ModelConfig):
 def _prefill(model: Model, params, entry: dict, device, carry: dict):
     """The prefill; its caches (this rank's blocks in the decode layout)
     stay in ``carry`` for the decode entries."""
-    tokens = torch.as_tensor(entry["tokens"]).long().to(device)
-    s_max = entry.get("s_max", tokens.shape[1])
-    call = lambda: model.prefill(params, {"tokens": tokens}, s_max)  # noqa: E731
+    batch = _batch(entry, device)
+    lay = model._layout(batch)
+    s_max = entry.get("s_max", lay.s)
+    call = lambda: model.prefill(params, batch, s_max)  # noqa: E731
     _launches(reset=True)
     before = dict(staging)
     with counting_collectives() as report, _recording(entry) as records:
         (logits, caches), ms = _timed(call, device)
     counts = _launches()
-    lay = actctx.rank_layout(*tokens.shape, model.cfg.d_model)
     out = dict(logits=logits.cpu(), rows=(lay.b0, lay.b0 + lay.b_loc),
                cols=_cols(lay, logits.shape[-1], model.cfg), caches=_host(caches),
                ops=_ops(report), staging_s=_staging_since(before), **counts,
                **_routing(records))
-    carry.update(caches=caches, pos=tokens.shape[1], s_max=s_max)
+    carry.update(caches=caches, pos=lay.s, s_max=s_max)
     del logits, caches
     ms = [ms] + [_timed(call, device)[1] for _ in range(entry.get("reps", 0))]
     return dict(out, ms=ms), params
@@ -602,16 +677,22 @@ def cache_slab(cfg: ModelConfig, b: int, s_max: int, seed: int, layer: int, whic
                device) -> torch.Tensor:
     """Layer ``layer``'s whole ``which`` cache (``"k"`` or ``"v"``, ``[b,
     s_max, nkv, hd]``; a mamba layer's ``"conv"``, ``[b, k - 1, d_inner]``,
-    or ``"h"``, ``[b, d_inner, N]``), float32 standard normal, drawn on
+    or ``"h"``, ``[b, d_inner, N]``; an encoder-decoder's ``"ek"`` or
+    ``"ev"``, ``[b, enc_seq, nkv, hd]``), float32 standard normal, drawn on
     ``device`` from ``(seed, layer, which)`` alone: every rank, and the
     one-rank model, draw the same slab and keep what they hold of it.
     ``layer`` is the absolute layer index (a hybrid's period times its
     length plus the slot)."""
     gen = torch.Generator(device=device).manual_seed(
-        (seed * 100_003 + layer) * 2 + {"k": 0, "v": 1, "conv": 0, "h": 1}[which])
-    shape = _mixer_cache_defs(cfg, "attn" if which in ("k", "v") else "mamba", b,
-                              s_max)[which].shape
-    return torch.randn(shape, generator=gen, device=device)
+        (seed * 100_003 + layer) * 2 + _SLAB_STREAM[which])
+    decl = next(p for path, p in flatten(Model(cfg).cache_defs(b, s_max)) if path[-1] == which)
+    return torch.randn(decl.shape[1:], generator=gen, device=device)
+
+
+#: Each cache leaf's offset in :func:`cache_slab`'s seed (a mamba layer's
+#: conv and h share an attention layer's k and v offsets; the cross
+#: caches take their own).
+_SLAB_STREAM = {"k": 0, "v": 1, "conv": 0, "h": 1, "ek": 2, "ev": 3}
 
 
 def cache_dtype(cfg: ModelConfig, decl) -> torch.dtype:
@@ -678,16 +759,18 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
     prefill's (none of the keys below; ``pos`` the prompt's length, then
     where the last such entry stopped), the whole ``caches`` given (numpy
     ``{"k", "v"}`` ``[L, B, s_max, nkv, hd]``, an SSM's ``{"conv",
-    "h"}``, or a hybrid's tree of both under ``"slot{s}"``; each rank keeps
-    its blocks) or drawn from ``seed`` at ``s_max``
+    "h"}``, a hybrid's tree of both under ``"slot{s}"``, an
+    encoder-decoder's ``ek`` and ``ev`` beside ``k`` and ``v``; each rank
+    keeps its blocks) or drawn from ``seed`` at ``s_max``
     (:func:`seeded_caches`); ``pos`` given with either.  ``host_caches``:
     also return host copies of this rank's blocks after the last tick.  →
     per entry: each tick's logits block (host), the greedy tokens of this
     rank's rows (:func:`_greedy`), ``ops``, ``ms`` and ``pos``; ``rows``,
     ``cols``, ``kv`` (this rank's positions; an SSM's block of
     ``d_inner``), ``di`` (its block of ``d_inner``), ``stationary`` (the
-    layout keeps every ``d_model`` block in place), ``k3_launches`` (the
-    decode kernel's, over the entry's ticks) and, on the card,
+    layout keeps every ``d_model`` block in place), ``k3_launches``,
+    ``k2_launches`` and ``k4_launches`` (the kernels', over the entry's
+    ticks) and, on the card,
     ``max_memory_allocated`` since the entry began."""
     from ..kernels import decode_attention
 
@@ -724,6 +807,7 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
                        rows=(lay.b0, lay.b0 + lay.b_loc), kv=kv,
                        di=(lay.di0, lay.di0 + lay.di_loc), stationary=lay.stationary)
             decode_attention.stats["launches"] = 0
+            _launches(reset=True)
             before = dict(staging)
             for t in range(tokens.shape[1]):
                 def tick():
@@ -739,7 +823,7 @@ def _decode(model: Model, params, entries: List[dict], device, carry: dict):
                 res["pos"].append(pos)
                 pos += 1
             res["cols"] = _cols(lay, logits.shape[-1], cfg)
-            res["k3_launches"] = decode_attention.stats["launches"]
+            res.update(k3_launches=decode_attention.stats["launches"], **_launches())
             res["staging_s"] = _staging_since(before)
             if entry.get("host_caches"):
                 res["caches"] = _host(caches)
@@ -778,9 +862,7 @@ def _launches(reset: bool = False) -> dict:
 
 def _loss(model: Model, params, entry: dict, device, carry: dict):
     model = Model(model.cfg.with_(**entry.get("cfg", {})))
-    batch = {"tokens": torch.as_tensor(entry["tokens"]).long().to(device)}
-    if "loss_mask" in entry:
-        batch["loss_mask"] = torch.as_tensor(entry["loss_mask"]).to(device)
+    batch = _batch(entry, device)
     call = lambda: model.loss(params, batch)  # noqa: E731
     _launches(reset=True)
     before = dict(staging)
@@ -831,10 +913,12 @@ def run(payload: dict) -> List[dict]:
     the counted call, or the entry's ticks); each step's ``ms``, the
     CUDA-synchronised wall clock of each train step, or of the counted
     call and of ``reps`` more; on the card, ``params_allocated`` and
-    ``max_memory_allocated``; ``route``.  A mesh of three axes is
-    ``("pod", "data", "model")``.  Any decoder-only family runs: dense,
-    MoE, SSM and hybrid (a hybrid's caches a tree of both kinds under
-    ``"slot{s}"``)."""
+    ``max_memory_allocated``; ``route``; ``case_s``, the case's seconds
+    from its parameters' initialisation on.  A mesh of three axes is
+    ``("pod", "data", "model")``.  Every family runs: dense, MoE, SSM,
+    hybrid (its caches a tree of both kinds under ``"slot{s}"``), VLM and
+    encoder-decoder (``kv_heads`` those of its decoder's self-attention;
+    its caches ``ek`` and ``ev`` beside ``k`` and ``v``)."""
     out = []
     for case in payload["cases"]:
         case = {**{k: v for k, v in payload.items() if k != "cases"}, **case}
@@ -848,12 +932,8 @@ def run(payload: dict) -> List[dict]:
         t0 = time.perf_counter()
         params = _params(case, mesh, model, device, param_rules)
         _sync(device)
-        attn = next((lp["attn"] for lp in (params["stack"], *params["stack"].values())
-                     if isinstance(lp, dict) and "attn" in lp), None)
         res = dict(coords=mesh.coords, init_s=time.perf_counter() - t0, rules=rules,
-                   param_rules=param_rules,
-                   kv_heads=None if attn is None else rank_kv_heads(
-                       cfg, attn["w_q"], attn["w_k"], mesh.coords["model"]))
+                   param_rules=param_rules, kv_heads=_kv_heads(cfg, params, mesh))
         if device.type == "cuda":
             res["params_allocated"] = torch.cuda.memory_allocated(device)
         carry = dict(mesh=mesh, param_rules=PARAM_RULES if param_rules is None else param_rules)
@@ -870,8 +950,20 @@ def run(payload: dict) -> List[dict]:
         del params
         if device.type == "cuda":
             torch.cuda.empty_cache()    # for the other ranks' next case
-        out.append(dict(res, route=_route()))
+        out.append(dict(res, route=_route(), case_s=time.perf_counter() - t0))
     return out
+
+
+def _kv_heads(cfg: ModelConfig, params, mesh):
+    """The global kv heads of the (decoder's) attention's k and v on this
+    rank (``attention.rank_kv_heads``), or None without attention.  A
+    function, so that no local outlives it to hold the parameters past
+    their case."""
+    stack = params["decoder" if cfg.family == "encdec" else "stack"]
+    attn = next((lp["attn"] for lp in (stack, *stack.values())
+                 if isinstance(lp, dict) and "attn" in lp), None)
+    return None if attn is None else rank_kv_heads(cfg, attn["w_q"], attn["w_k"],
+                                                   mesh.coords["model"])
 
 
 def assemble_blocks(blocks, b: int, v: int) -> torch.Tensor:

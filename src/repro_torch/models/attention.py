@@ -16,7 +16,10 @@ back.  Kv heads that do not split over ``model`` stay whole on every rank,
 which takes the ones its q heads read (:func:`rank_kv_heads`).  Under the
 decode rules the dense model hands :func:`decode_attention` its decode
 layout, whose caches hold a block of positions for every kv head: the
-softmax runs across the ranks (:func:`_decode_attention_sharded`).
+softmax runs across the ranks (:func:`_decode_attention_sharded`).  The
+encoder-decoder's cross-attention runs on the rank's heads the same way
+(:func:`cross_kv`, :func:`cross_attention`): k and v of the rank's kv
+heads of the whole encoder output, q of the gathered decoder stream.
 """
 from __future__ import annotations
 
@@ -120,23 +123,23 @@ def _chunked_attention(
     causal: bool,
     chunk: int,
 ) -> torch.Tensor:
-    """Plain-path attention over query chunks, so the materialized score
-    block is [B, nkv, g, chunk, Sk] instead of O(Sq·Sk)."""
-    b, sq, nq, hd = q.shape
-    sk = k.shape[1]
-    cq = chunk
-    while cq > 0 and sq % cq:
-        cq //= 2
-    if cq <= 0 or cq >= sq:
+    """Plain-path attention over blocks of ``chunk`` query rows (the last
+    one shorter), so the materialized score block is [B, nkv, g, chunk,
+    Sk] instead of O(Sq·Sk).  The reference scans chunks of ``chunk``
+    halved until it divides Sq; each row's attention is its own, so the
+    port takes the rows ``chunk`` at a time (whisper's 1 500 encoder
+    positions were a Python loop of 375 chunks of 4)."""
+    sq, sk = q.shape[1], k.shape[1]
+    if chunk <= 0 or chunk >= sq:
         mask = causal_mask(sq, sk, device=q.device) if causal else None
         return _gqa_scores_out(q, k, v, mask)
     outs = []
     kpos = torch.arange(sk, device=q.device)[None, :]
-    for i in range(sq // cq):
-        qi = q[:, i * cq:(i + 1) * cq]
+    for r0 in range(0, sq, chunk):
+        qi = q[:, r0:r0 + chunk]
         mask = None
         if causal:
-            qpos = i * cq + torch.arange(cq, device=q.device)[:, None]
+            qpos = r0 + torch.arange(qi.shape[1], device=q.device)[:, None]
             mask = (kpos <= qpos)[None, None, None]
         outs.append(_gqa_scores_out(qi, k, v, mask))
     return torch.cat(outs, dim=1)
@@ -176,6 +179,19 @@ def rank_kv_heads(cfg: ModelConfig, w_q: torch.Tensor, w_k: torch.Tensor, mi: in
     return list(range(k0, k0 + nkv_loc))
 
 
+def _rank_kv(p: dict, cfg: ModelConfig, lay) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """(``w_k``, ``w_v``, whether the q heads split): this rank's blocks of
+    the k and v weights of the kv heads it computes, those its q heads read
+    where the q heads split and the kv heads stay whole
+    (:func:`rank_kv_heads`)."""
+    w_k, w_v = p["w_k"], p["w_v"]
+    heads_split = p["w_q"].shape[1] != cfg.n_heads
+    if heads_split and w_k.shape[1] == cfg.n_kv_heads:    # kv heads whole
+        kv = rank_kv_heads(cfg, p["w_q"], w_k, lay.mi)
+        w_k, w_v = w_k[:, kv], w_v[:, kv]
+    return w_k, w_v, heads_split
+
+
 def full_attention(
     p: dict,
     x: torch.Tensor,                    # [B, S, d]
@@ -194,10 +210,7 @@ def full_attention(
     w_k, w_v, heads_split = p["w_k"], p["w_v"], False
     if lay is not None:
         x = lay.gather_seq(x, "attn/in")
-        heads_split = p["w_q"].shape[1] != cfg.n_heads
-        if heads_split and w_k.shape[1] == cfg.n_kv_heads:    # kv heads whole
-            kv = rank_kv_heads(cfg, p["w_q"], w_k, lay.mi)
-            w_k, w_v = w_k[:, kv], w_v[:, kv]
+        w_k, w_v, heads_split = _rank_kv(p, cfg, lay)
     q, k, v = _qkv(p, x, cfg, rope, w_k, w_v)
     if cfg.attn_impl == "pallas" and causal:
         from ..kernels import ops as kops
@@ -315,11 +328,29 @@ def cross_attention(
     k: torch.Tensor,                    # [B, Sk, nkv, hd] (precomputed enc K)
     v: torch.Tensor,
     cfg: ModelConfig,
+    lay=None,
 ) -> torch.Tensor:
-    q = _proj(x, p["w_q"])
-    out = _gqa_scores_out(q, k, v, None)
-    return _out_proj(out, p["w_o"])
+    """The queries of ``x`` against the encoder's ``k`` and ``v``, unmasked.
+    With ``lay`` (the decoder's ``RankLayout``), ``x`` is this rank's block
+    of the decoder stream, ``p`` its blocks of the weights with ``d_model``
+    whole, ``k`` and ``v`` its kv heads (:func:`cross_kv`): the block is
+    gathered along the sequence (``xattn/in``), q projected on the rank's
+    heads, and the row-parallel output's partial sums reduce-scattered back
+    (``xattn/out``; summed where the sequence is whole); where the heads do
+    not split, every rank computes every head and keeps its positions."""
+    if lay is not None:
+        x = lay.gather_seq(x, "xattn/in")
+    out = _gqa_scores_out(_proj(x, p["w_q"]), k, v, None)
+    y = _out_proj(out, p["w_o"])
+    if lay is not None:
+        y = lay.scatter_seq(y, p["w_q"].shape[1] != cfg.n_heads, "xattn/out")
+    return y
 
 
-def cross_kv(p: dict, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _proj(enc, p["w_k"]), _proj(enc, p["w_v"])
+def cross_kv(p: dict, enc: torch.Tensor, cfg: Optional[ModelConfig] = None,
+             lay=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's k and v; with ``lay``, ``enc`` is this rank's
+    rows of the whole output and k, v its kv heads
+    (:func:`rank_kv_heads`)."""
+    w_k, w_v = (p["w_k"], p["w_v"]) if lay is None else _rank_kv(p, cfg, lay)[:2]
+    return _proj(enc, w_k), _proj(enc, w_v)

@@ -54,7 +54,7 @@ gathers each layer's (each slot's) weights the same way, and each
 attention layer writes the new token's k and v into this rank's block of
 the caches where the block holds its position; a mamba layer updates its
 rows and channels of the conv window and the state.  Where the decode's
-batch does not split over ``data`` an SSM or hybrid stack keeps every
+batch does not split over ``data`` a dense, SSM or hybrid stack keeps every
 ``d_model`` block in place instead (``RankLayout.stationary``): the
 residual stream whole on every rank, both norms giving this rank's block
 of ``d_model``, every in-projection (attention's q, k and v, the MLP's

@@ -14,8 +14,8 @@ from repro_torch.models.transformer import apply_stack_full
 def full_logits(model, cfg, params, batch):
     if cfg.family == "encdec":
         enc = ed.encode(params, batch["frames"], cfg)
-        lg, _ = ed.decode_full(params, batch["tokens"], enc, cfg)
-        return lg
+        x, _ = ed.decode_full(params, model._embed(params, batch["tokens"]), enc, cfg)
+        return model._head(params, x)
     x = model._assemble_input(params, batch)
     rope = model._rope(torch.arange(x.shape[1]))
     x, _, _ = apply_stack_full(cfg, params["stack"], x, rope)

@@ -1,7 +1,8 @@
 """The port's encoder-decoder (whisper-base) against the JAX package's, on
-the CPU: ``encode``, ``decode_full`` (logits and the collected states,
-with both attention paths for the decoder's causal self-attention),
-``decode_step`` threading its caches, and the cache declaration, on the
+the CPU: ``encode``, ``decode_full`` (logits through ``Model._head`` and
+the collected states, with both attention paths for the decoder's causal
+self-attention), ``decode_step`` threading its caches (its input from
+``Model._embed``), and the cache declaration, on the
 same parameters (converted with ``params_from_jax``), float32 at 1e-5 and
 bfloat16 at the serve tests' tolerance.  The reference's decoder under
 ``attn_impl="pallas"`` runs its Pallas kernel in interpret mode.
@@ -52,10 +53,12 @@ def test_decode_full_and_states_match_reference(dtype, impl):
     enc_t = torch.from_numpy(np.array(_f32(enc_j))).to(getattr(torch, dtype))   # exact
     want, wst = ref_ed.decode_full(jp, jtok, enc_j, ref_model.cfg, collect_state=True)
     with torch.no_grad():
-        got, gst = ed.decode_full(tp, ttok, enc_t, model.cfg, collect_state=True)
-        bare, none = ed.decode_full(tp, ttok, enc_t, model.cfg)
+        x = model._embed(tp, ttok)
+        out, gst = ed.decode_full(tp, x, enc_t, model.cfg, collect_state=True)
+        bare, none = ed.decode_full(tp, x, enc_t, model.cfg)
+        got = model._head(tp, out)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-    assert none is None and torch.equal(bare, got)
+    assert none is None and torch.equal(bare, out)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype])
     assert {p for p, _ in flatten(gst)} == {("k",), ("v",), ("ek",), ("ev",)}
     _assert_caches_close(gst, wst, TOL[dtype])
@@ -84,7 +87,9 @@ def test_decode_step_threads_the_caches_like_the_reference(dtype):
                                     ref_model.cfg)
         k_before = tc["k"]
         with torch.no_grad():
-            tl, tc2 = ed.decode_step(tp, torch.as_tensor(tok).long(), 16 + step, tc, cfg)
+            x = model._embed(tp, torch.as_tensor(tok).long(), start=16 + step)
+            out, tc2 = ed.decode_step(tp, x, 16 + step, tc, cfg)
+            tl = model._head(tp, out)
         assert tc2 is tc and tc["k"] is k_before
         assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
         np.testing.assert_allclose(_f32(tl), _f32(jl), atol=TOL[dtype])
@@ -120,6 +125,6 @@ def test_decoder_self_attention_takes_the_kernel_path_only_when_causal(monkeypat
     with torch.no_grad():
         enc = ed.encode(tp, tfr, model.cfg)
         assert calls == []
-        ed.decode_full(tp, ttok, enc, model.cfg)
+        ed.decode_full(tp, model._embed(tp, ttok), enc, model.cfg)
     assert len(calls) == model.cfg.n_layers
     assert flash_attention.stats["launches"] == launches   # CPU: plain version

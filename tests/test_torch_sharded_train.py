@@ -32,8 +32,8 @@ the port's one-rank ``make_train_step``; every rank's counted
 collectives, backward included, equal to
 ``launch/sharded.py::sharded_collectives(step="train")``; the wire bytes
 a step against the compiled cell's (by the rule below, fixed before the
-first run); ``Model.loss`` under autograd on a rank mesh still raising
-for the MoE, hybrid, encoder-decoder and VLM families.
+first run); ``Model._layout`` under autograd on a rank mesh for every
+family (the VLM's the layout of its stream, vision prefix included).
 
 Each multi-rank run has a wall-clock limit (``run_ranks``' ``timeout_s``)
 and every group a 60 s timeout, so a rank that fails or waits on a
@@ -330,13 +330,16 @@ def _fake_rank_mesh(shape=(1, 2), rank=0):
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b", "whisper-base",
                                   "falcon-mamba-7b", "internvl2-1b", "tied-dense"])
 def test_loss_under_autograd_on_ranks_raises_off_the_sharded_families(arch):
-    """A rank mesh's context with autograd on: the encoder-decoder and VLM
-    families raise before any collective (their sharded train step is not
-    ported); the SSM, MoE and hybrid families and a dense model with a
-    tied head take the sharded path's layout instead (their train steps
-    on ranks: ``tests/test_torch_sharded_ssm.py``,
-    ``tests/test_torch_sharded_moe.py``,
-    ``tests/test_torch_sharded_hybrid.py``)."""
+    """A rank mesh's context with autograd on: no family raises any more.
+    The SSM, MoE and hybrid families, a dense model with a tied head and
+    the encoder-decoder take the sharded path's layout of their tokens
+    (the encoder-decoder its decoder's; its encoder takes one of its own),
+    the VLM the layout of its whole stream, ``n_vision_tokens`` positions
+    before the tokens' (their train steps on ranks:
+    ``tests/test_torch_sharded_ssm.py``, ``tests/test_torch_sharded_moe.py``,
+    ``tests/test_torch_sharded_hybrid.py``,
+    ``tests/test_torch_sharded_encdec.py``,
+    ``tests/test_torch_sharded_vlm.py``)."""
     if arch == "tied-dense":
         cfg = get_config(ARCH, smoke=True).with_(tie_embeddings=True)
     else:
@@ -345,13 +348,10 @@ def test_loss_under_autograd_on_ranks_raises_off_the_sharded_families(arch):
     batch = {"tokens": torch.zeros(2, 8, dtype=torch.long)}
     with actctx.activation_sharding(_fake_rank_mesh(), {"batch": ("data",), "seq": "model"}):
         with torch.enable_grad():
-            if arch in ("falcon-mamba-7b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b",
-                        "tied-dense"):
-                lay = model._layout(batch)
-                assert (lay.batch, lay.seq_sharded, lay.b_loc, lay.s_loc) == (("data",), True, 2, 4)
-                return
-            with pytest.raises(NotImplementedError):
-                model.loss({}, batch)
+            lay = model._layout(batch)
+    s = 8 + (cfg.n_vision_tokens if arch == "internvl2-1b" else 0)
+    assert (lay.batch, lay.seq_sharded, lay.b_loc, lay.s, lay.s_loc) == (
+        ("data",), True, 2, s, s // 2)
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (1, 4), (2, 2, 2)])
