@@ -80,8 +80,10 @@ result lines are printed:
               across a retire with the mirror live; the affine hierarchy's
               snapshot twin; (c) ``bench_faults.py``'s storm at k 8 with
               500 tasks (host kills, stragglers, retries, LATE
-              speculation) on both reroute engines.  K1's launches on each
-              path go on the kernel line.
+              speculation) on both reroute engines, and at its acceptance
+              config (k 8, 128 tasks, 6 crashes, 16 stragglers) on the
+              batched engine, where LATE backups launch on both backends.
+              K1's launches on each path go on the kernel line.
 9. models   — the MoE, hybrid and encoder-decoder families on the serving
               path, each served like phase 6 (2 replicas × 4 slots behind
               ``BassRouter``, 8 requests, 16 new tokens), K2 launched once
@@ -124,7 +126,11 @@ result lines are printed:
 11. cost    — (a) ``python -m repro_torch.launch.dryrun`` for
               internvl2-1b × train_4k, falcon-mamba-7b × prefill_32k and
               moonshot-v1-16b-a3b × prefill_32k (``--mesh single``), one
-              process each, all started together: every record ``ok``.
+              process each, all started together: every record ``ok``,
+              its ``collectives`` (one rank's program on ``meta``, the
+              train cell at 8 microbatches) the count and wire bytes of
+              ``sharded_collectives`` for the cell, each cell's count, ICI
+              and DCN wire bytes, ``dominant`` and ``peak_gib`` printed.
               (b) Each step counted in phases 6, 7 and 10 counted again on
               ``meta`` with the same config and shapes: FLOPs and bytes
               equal to the card's count exactly, and each kernel's region
@@ -285,6 +291,20 @@ result lines are printed:
               every rank's collectives equal to ``sharded_collectives``,
               K2 once a decoder layer in every prefill and eval and never
               in a tick or a train step.
+              In phases 13–18 each counted entry (prefill, loss, train,
+              grad, tick) is also run as one rank's program on ``meta``
+              in this process (``launch/dryrun.py::rank_program``, the
+              case's config, depth, mesh, rules and shapes): its ops equal
+              the formula, and so every rank's on the card, op for op
+              (the launcher's ``decode/greedy`` left out).
+19. examples — the port's five example scripts in this process: the three
+              scheduler scripts (``examples/quickstart_torch.py``,
+              ``bass_cluster_demo_torch.py``, ``failover_demo_torch.py``)
+              on ``cuda`` and then on ``numpy``, the same standard output,
+              K1 launched on ``cuda``; ``serve_batch_torch.py`` routes and
+              finishes all 10 requests; ``train_e2e_torch.py`` at its
+              defaults (300 steps), its checkpoints under ``build/``, its
+              last loss below its first.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, ...}``.  A
@@ -303,9 +323,10 @@ kernels in one call.
     python3 chip_smoke.py --sharded-moe
     python3 chip_smoke.py --sharded-hybrid
     python3 chip_smoke.py --sharded-encdec-vlm
+    python3 chip_smoke.py --examples
 
-build the kernels and run phase 14, 13, 15, 16, 17 or 18 alone (its line
-only).
+build the kernels and run phase 14, 13, 15, 16, 17, 18 or 19 alone (its
+line only, and for 13–18 the ``meta`` rank programs' line).
 """
 from __future__ import annotations
 
@@ -1601,6 +1622,9 @@ RECOVERY = dict(k=8, tasks=128, crashes=6, stragglers=16, crash_at=1.2, outage=1
 # The storm at 500 tasks (3 000 before, for the script's time, PERF.md §4):
 # the same faults (6 hosts down and back, every killed task retried).
 STORM = dict(k=8, tasks=500, crashes=6, stragglers=16)
+# bench_faults.py's acceptance config, (8, 128, 6, 16): its LATE gate fires
+# (spec_launch > 0), which the 500-task storm's never did.
+STORM_ACCEPTANCE = dict(k=8, tasks=128, crashes=6, stragglers=16)
 BACKENDS = ("cuda", "numpy")  # each leg on the card, then the reference
 _CANON_EXCLUDE = ("wavefront.", "recovery.")
 
@@ -1873,7 +1897,7 @@ def _phase8_recovery():
     return dict(runs=out, checks=checks)
 
 
-def _storm_leg(backend, engine):
+def _storm_leg(backend, engine, cfg=STORM):
     """(c) bench_faults.py's storm: host kills, stragglers, retries and
     LATE speculation, under one reroute engine."""
     import torch
@@ -1881,7 +1905,6 @@ def _storm_leg(backend, engine):
     from repro_torch.kernels import ts_plan
     from repro_torch.tools.dump_schedules import fault_storm_setup
 
-    cfg = STORM
     ts_plan.set_backend(backend)
     fab, workers, tasks = fault_storm_setup(cfg["k"], cfg["tasks"])
     _reset_counts()
@@ -1923,7 +1946,25 @@ def _phase8_storm():
     invariant = lambda c: c[:2] + c[3:]  # noqa: E731  (all but the counters)
     identical = all(invariant(c) == invariant(last) and f == last_faults
                     and (e != last_engine or c == last) for e, c, f in canons)
-    return dict(legs=legs, identical=identical)
+    return dict(legs=legs, identical=identical, acceptance=_storm_acceptance())
+
+
+def _storm_acceptance():
+    """bench_faults.py's acceptance storm (``STORM_ACCEPTANCE``), the
+    batched engine on each backend: schedules, reroute logs, counters and
+    fault counters byte-identical, and LATE backups launched on both."""
+    legs, canons = [], []
+    for backend in BACKENDS:
+        ctrl, leg = _storm_leg(backend, "batched", STORM_ACCEPTANCE)
+        canons.append((_ctrl_canon(ctrl),
+                       sorted((k, float(v).hex()) for k, v in ctrl.fault_stats.items())))
+        legs.append(leg)
+        del ctrl
+        gc.collect()
+    spec = [leg["faults"]["spec_launch"] for leg in legs]
+    return dict(config=STORM_ACCEPTANCE, legs=legs, spec_launch=spec,
+                identical=all(c == canons[-1] for c in canons),
+                seconds=sum(leg["seconds"] for leg in legs))
 
 
 def phase_scheduler():
@@ -1934,18 +1975,24 @@ def phase_scheduler():
     rec = _phase8_recovery()
     storm = _phase8_storm()
     first = BACKENDS[0]
+    acceptance = storm["acceptance"]
     launches = dict(
         hierarchy=hier["legs"][0]["k1_launches"],
         recovery=rec["runs"][first]["k1_launches"],
         fault_storm=sum(leg["k1_launches"] for leg in storm["legs"]
                         if leg["backend"] == first),
+        fault_storm_acceptance=acceptance["legs"][0]["k1_launches"],
     )
     log("scheduler", hierarchy=hier, recovery=rec, storm=storm, k1_launches=launches,
         seconds=time.perf_counter() - t0)
-    bad = [k for k, ok in [("hierarchy", hier["identical"]), ("storm", storm["identical"])]
+    bad = [k for k, ok in [("hierarchy", hier["identical"]), ("storm", storm["identical"]),
+                           ("storm_acceptance", acceptance["identical"])]
            + list(rec["checks"].items()) if not ok]
     if bad:
         raise AssertionError(f"phase 8: not byte-identical across backends: {bad}")
+    if not all(n > 0 for n in acceptance["spec_launch"]):
+        raise AssertionError(f"phase 8: the acceptance storm launched no LATE backup: "
+                             f"{acceptance['spec_launch']}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"phase 8: K1 was not launched on every path: {launches}")
     return dict(launches=launches, hierarchy=hier, storm=storm)
@@ -2704,11 +2751,52 @@ def phase_trainer():
 
 # -- phase 11 ------------------------------------------------------------------
 
-# (a) the dry run's CLI, one process per cell, all started together: the
-# trainer's cell, the mamba time scan at full size (by formula) and the MoE
-# dispatch at 32k.
+# (a) the dry run's CLI, one process per cell, all started together after
+# phase 1: the trainer's cell, the mamba time scan at full size (by formula)
+# and the MoE dispatch at 32k.
 DRYRUN_CELLS = [("internvl2-1b", "train_4k"), ("falcon-mamba-7b", "prefill_32k"),
                 ("moonshot-v1-16b-a3b", "prefill_32k")]
+
+
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun_torch")
+#: The dry runs' processes, started once (:func:`_start_dryruns`).
+DRYRUN_PROCS = {}
+
+
+def _start_dryruns():
+    """Start (a)'s dry runs, one process each, unless started: they run on
+    the host's cores on ``meta`` tensors (internvl2-1b's train cell at 8
+    microbatches about 45 s), so ``main`` starts them beside phase 2 and
+    phase 11 reads them."""
+    if not DRYRUN_PROCS:
+        env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+        DRYRUN_PROCS.update({f"{a}__{s}": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
+             "--mesh", "single", "--out", DRYRUN_DIR, "--force"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+            for a, s in DRYRUN_CELLS})
+    return DRYRUN_PROCS
+
+
+def _dryrun_formula(arch, shape_name):
+    """The count and wire bytes ``launch/sharded.py::sharded_collectives``
+    gives a dry-run cell on the (16, 16) mesh under the baseline (the
+    greedy pick left out, as ``dryrun.formula_ops`` leaves it)."""
+    from repro_torch.configs import shapes_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.expert import report_of
+    from repro_torch.launch.mesh import make_production_mesh, recording_mesh
+
+    shape = next(s for s in shapes_for(arch) if s.name == shape_name)
+    mesh = make_production_mesh()
+    cfg, b, s, s_max = dryrun.cell_step(arch, shape, mesh, "baseline")
+    rec = recording_mesh(mesh.axis_sizes, mesh.axis_names)
+    cfg, param_rules, rules = dryrun.rank_rules(cfg, shape.kind, b, s, rec, "baseline")
+    ops = dryrun.formula_ops(cfg, shape.kind, b, s, mesh.shape, param_rules, rules,
+                             dryrun.TRAIN_ACCUM, s_max)
+    report = report_of(ops)
+    return dict(count=report.count(), wire_bytes_ici=report.total_wire_bytes(dcn=False),
+                wire_bytes_dcn=report.total_wire_bytes(dcn=True))
 
 
 def _region_noop_ns(n=200_000):
@@ -2743,13 +2831,7 @@ def phase_cost():
     from repro_torch.launch.hlo_analysis import model_flops_estimate
 
     t0 = time.perf_counter()
-    out_dir = os.path.join(HERE, "build", "dryrun_torch")
-    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
-    procs = {f"{a}__{s}": subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
-         "--mesh", "single", "--out", out_dir, "--force"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for a, s in DRYRUN_CELLS}
+    procs = _start_dryruns()
 
     steps, bad = {}, []
     for name, rec in COUNTED.items():
@@ -2788,17 +2870,28 @@ def phase_cost():
             bad.append(f"{name}: kernel regions {regions}, expected {rec['kernel_regions']}")
     noop = _region_noop_ns()
 
-    records = {}
+    records, summary = {}, {}
     for cell, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=300)
-        path = os.path.join(out_dir, f"{cell}__pod256.json")
+        path = os.path.join(DRYRUN_DIR, f"{cell}__pod256.json")
         rec = json.load(open(path)) if os.path.exists(path) else {"ok": False}
         records[cell] = dict(ok=rec["ok"] and proc.returncode == 0,
                              returncode=proc.returncode, tail=stdout.strip()[-200:],
                              **{k: rec.get(k) for k in ("accounting", "roofline", "memory",
+                                                        "collectives", "rank_program",
                                                         "error")})
         if not records[cell]["ok"]:
             bad.append(f"dryrun {cell}: {rec.get('error')} {stderr[-500:]}")
+            continue
+        want = _dryrun_formula(*cell.split("__"))
+        coll = rec["collectives"]
+        summary[cell] = dict(count=coll["count"], wire_bytes_ici=coll["wire_bytes_ici"],
+                             wire_bytes_dcn=coll["wire_bytes_dcn"],
+                             dominant=rec["roofline"]["dominant"],
+                             peak_gib=rec["memory"]["peak_gib"], formula=want)
+        if {k: coll[k] for k in want} != want:
+            bad.append(f"dryrun {cell}: collectives {coll} against the formula's {want}")
+    log("cost_collectives", cells=summary)
     log("cost", seconds=time.perf_counter() - t0, steps=steps, dryrun=records,
         region_noop=noop, chip=H100_SXM.name, peak_bf16_flop_s=BF16_FLOP_S,
         hbm_bytes_s=HBM_BYTES_S)
@@ -2926,6 +3019,50 @@ def _check_ops(name, results, want):
                                      f"the formula {ops}")
     return {key: dict(count=report_of(ops).count(), wire_bytes=report_of(ops).by_kind())
             for key, ops in want.items()}
+
+
+#: Phases 13–18: each entry's ``meta`` rank program (``launch/dryrun.py::
+#: rank_program``), by its case's arguments: its op count, the first op
+#: where it parts from the formula (None: none), its host seconds.
+META_PROGRAMS = {}
+
+
+def _formula(cfg, mesh, rules, b, s, param_bytes, act_bytes, step="prefill", accum=1,
+             param_rules=None, s_max=None, kind=None):
+    """``sharded_collectives`` of an entry the ranks ran (the caller holds
+    every rank's ops against it), after holding the ``meta`` rank program
+    of the same case against it op for op, without the launcher's greedy
+    pick (``decode/greedy``): the ranks' ops then equal the rank
+    program's.  ``kind``: the rank program's step where it is not ``step``
+    (a grad entry's ``"grad"``)."""
+    from repro_torch.launch.dryrun import first_difference, rank_program
+    from repro_torch.launch.sharded import sharded_collectives
+
+    want = sharded_collectives(cfg, mesh, rules, b, s, param_bytes, act_bytes, step, accum,
+                               param_rules, s_max)
+    kind = kind or step
+    key = repr((cfg, sorted(mesh.items()), rules, b, s, kind, accum, param_rules, s_max))
+    if key not in META_PROGRAMS:
+        t0 = time.perf_counter()
+        prog = rank_program(cfg, kind, b, s, dict(mesh), (param_rules, rules), accum=accum,
+                            s_max=s_max)
+        got = [(c.kind, c.result_bytes, c.group, c.path) for c in prog["report"].ops]
+        META_PROGRAMS[key] = dict(
+            arch=cfg.name, layers=cfg.n_layers, kind=kind, batch=[b, s], mesh=dict(mesh),
+            ops=len(got), seconds=time.perf_counter() - t0,
+            differs_at=first_difference(got, [op for op in want if op[3] != "decode/greedy"]))
+    if META_PROGRAMS[key]["differs_at"] is not None:
+        raise AssertionError(f"the meta rank program of {cfg.name} {kind} {b} × {s} on {mesh} "
+                             f"parts from the ranks' formula: {META_PROGRAMS[key]}")
+    return want
+
+
+def _meta_summary():
+    """Phases 13–18's ``meta`` rank programs: how many, their ops and host
+    seconds."""
+    progs = list(META_PROGRAMS.values())
+    return dict(programs=len(progs), ops=sum(p["ops"] for p in progs),
+                seconds=sum(p["seconds"] for p in progs), each=progs)
 
 
 def _expert_block():
@@ -3230,7 +3367,7 @@ def _sharded_decode(ranks, case, ccfg, mesh, ref, label, fails):
     from repro_torch.distributed.sharding import decode_rules
     from repro_torch.launch.expert import report_of
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.sharded import assemble_tick, sharded_collectives
+    from repro_torch.launch.sharded import assemble_tick
 
     err = lambda a, c: float((a - c).abs().max())  # noqa: E731
     key = "bf16" if ccfg.compute_dtype == "bfloat16" else "f32"
@@ -3240,7 +3377,7 @@ def _sharded_decode(ranks, case, ccfg, mesh, ref, label, fails):
     for j, (name, entry) in enumerate(zip(("ticks", "long"), case["decode"])):
         b = entry["tokens"].shape[0]
         s_max = entry.get("s_max", DECODE_S_MAX)
-        want = sharded_collectives(ccfg, mesh, rules, b, 1, size, size, "decode", s_max=s_max)
+        want = _formula(ccfg, mesh, rules, b, 1, size, size, "decode", s_max=s_max)
         if any(ops != want for r in ranks for ops in r["decode"][j]["ops"]):
             fails.append(f"(g) {label} decode {name}: a rank's ops differ from the formula")
         refs = ref[key][name] if name == "long" else ref[key]["ticks"]
@@ -3295,7 +3432,7 @@ def phase_sharded(free_before):
     from repro_torch.distributed.ranks import run_ranks
     from repro_torch.launch.expert import report_of
     from repro_torch.launch.serve import make_requests
-    from repro_torch.launch.sharded import assemble_logits, sharded_collectives
+    from repro_torch.launch.sharded import assemble_logits
 
     t0 = time.perf_counter()
     released = [_card_released(free_before)]
@@ -3354,8 +3491,8 @@ def phase_sharded(free_before):
         size = 4 if depth != "bf16" else 2
         logits = assemble_logits(ranks, b, v)
         k2 = [r["prefill"]["k2_launches"] for r in ranks]
-        want = {step: sharded_collectives(ccfg, mesh, SHARDED_RULES, *case[step]["tokens"].shape,
-                                          size, size, step, s_max=DECODE_S_MAX)
+        want = {step: _formula(ccfg, mesh, SHARDED_RULES, *case[step]["tokens"].shape,
+                               size, size, step, s_max=DECODE_S_MAX)
                 for step in ("prefill", "loss") if step in case}
         for step, ops in want.items():
             if any(r[step]["ops"] != ops for r in ranks):
@@ -3517,7 +3654,6 @@ def phase_sharded_train(free_before):
     from repro_torch.configs import ARCH_NAMES, get_config
     from repro_torch.distributed.ranks import run_ranks
     from repro_torch.launch.expert import report_of
-    from repro_torch.launch.sharded import sharded_collectives
 
     t0 = time.perf_counter()
     released = [_card_released(free_before)]
@@ -3568,8 +3704,8 @@ def phase_sharded_train(free_before):
             mesh_shape = dict(zip(("data", "model"), case["mesh"]))
             r0 = ranks[0]
             size = 4 if key == "f32" else 2
-            want = sharded_collectives(c, mesh_shape, r0["rules"], *TRAIN_SHAPE, size, size,
-                                       "train", TRAIN_ACCUM[key], r0["param_rules"])
+            want = _formula(c, mesh_shape, r0["rules"], *TRAIN_SHAPE, size, size,
+                            "train", TRAIN_ACCUM[key], r0["param_rules"])
             if any(r["train"]["ops"] != want for r in ranks):
                 fails.append(f"{label}: a rank's train ops differ from the formula")
             entry = dict(
@@ -3608,8 +3744,8 @@ def phase_sharded_train(free_before):
                 ev = [r["loss"]["loss"] for r in ranks]
                 k2 = [r["loss"]["k2_launches"] for r in ranks]
                 eval_err = max(abs(e - refs[key]["eval_loss"]) for e in ev)
-                want_ev = sharded_collectives(c, mesh_shape, r0["rules"], *TRAIN_EVAL_SHAPE,
-                                              size, size, "loss", 1, r0["param_rules"])
+                want_ev = _formula(c, mesh_shape, r0["rules"], *TRAIN_EVAL_SHAPE,
+                                   size, size, "loss", 1, r0["param_rules"])
                 if any(r["loss"]["ops"] != want_ev for r in ranks):
                     fails.append(f"{label}: a rank's eval ops differ from the formula")
                 entry.update(eval_losses=ev, eval_one_rank=refs[key]["eval_loss"],
@@ -3767,7 +3903,7 @@ def _ssm_serve_checks(ranks, case, ccfg, ref, label, fails):
     from repro_torch.distributed.sharding import decode_rules
     from repro_torch.launch.expert import report_of
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.sharded import assemble_logits, assemble_tick, sharded_collectives
+    from repro_torch.launch.sharded import assemble_logits, assemble_tick
 
     err = lambda a, c: float((a - c).abs().max())  # noqa: E731
     key = "bf16" if ccfg.compute_dtype == "bfloat16" else "f32"
@@ -3775,8 +3911,8 @@ def _ssm_serve_checks(ranks, case, ccfg, ref, label, fails):
     mesh = dict(zip(("data", "model"), case["mesh"]))
     rules = ranks[0]["rules"]
     b, v = case["prefill"]["tokens"].shape[0], ccfg.vocab_size
-    want = {step: sharded_collectives(ccfg, mesh, rules, *case[step]["tokens"].shape, size,
-                                      size, step, param_rules=ranks[0]["param_rules"])
+    want = {step: _formula(ccfg, mesh, rules, *case[step]["tokens"].shape, size,
+                           size, step, param_rules=ranks[0]["param_rules"])
             for step in ("prefill", "loss")}
     for step, ops in want.items():
         if any(r[step]["ops"] != ops for r in ranks):
@@ -3832,7 +3968,7 @@ def _ssm_serve_checks(ranks, case, ccfg, ref, label, fails):
     out["decode"] = {}
     for j, name in enumerate(names):
         bt = case["decode"][j]["tokens"].shape[0]
-        want = sharded_collectives(ccfg, mesh, drules, bt, 1, size, size, "decode")
+        want = _formula(ccfg, mesh, drules, bt, 1, size, size, "decode")
         if any(ops != want for r in ranks for ops in r["decode"][j]["ops"]):
             fails.append(f"(d) {label} decode {name}: a rank's ops differ from the formula")
         n = len(ranks[0]["decode"][j]["ms"])
@@ -3871,14 +4007,13 @@ def _ssm_serve_checks(ranks, case, ccfg, ref, label, fails):
 def _ssm_train_checks(ranks, case, c, refs, label, fails):
     """(a)/(c)/(d)/(f) of a train case against the one-rank steps."""
     from repro_torch.launch.expert import report_of
-    from repro_torch.launch.sharded import sharded_collectives
 
     key = "bf16" if c.compute_dtype == "bfloat16" else "f32"
     size = 2 if key == "bf16" else 4
     mesh_shape = dict(zip(("data", "model"), case["mesh"]))
     r0 = ranks[0]
-    want = sharded_collectives(c, mesh_shape, r0["rules"], *SSM["train"], size, size, "train",
-                               SSM["accum"], r0["param_rules"])
+    want = _formula(c, mesh_shape, r0["rules"], *SSM["train"], size, size, "train",
+                    SSM["accum"], r0["param_rules"])
     if any(r["train"]["ops"] != want for r in ranks):
         fails.append(f"(d) {label}: a rank's train ops differ from the formula")
     loss_err = max(abs(a - b) for r in ranks for a, b in zip(r["train"]["loss"], refs["loss"]))
@@ -3920,11 +4055,10 @@ def _ssm_eval_f32(ranks, cfg, ref, fails):
     """(b) in float32: the ranks' eval through K4 at full depth against one
     rank's time loop; (d) its ops; (f) its times."""
     from repro_torch.launch.expert import report_of
-    from repro_torch.launch.sharded import sharded_collectives
 
     c = cfg.with_(**SSM_EVAL_F32)
-    want = sharded_collectives(c, dict(data=1, model=4), ranks[0]["rules"], *SSM["loss"], 4, 4,
-                               "loss")
+    want = _formula(c, dict(data=1, model=4), ranks[0]["rules"], *SSM["loss"], 4, 4,
+                    "loss")
     out = dict(losses=[r["loss"]["loss"] for r in ranks], one_rank_loop=ref["eval_f32"],
                err=max(abs(r["loss"]["loss"] - ref["eval_f32"]) for r in ranks),
                tolerance=SHARDED_TOL, k4_launches=[r["loss"]["k4_launches"] for r in ranks],
@@ -4248,7 +4382,7 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=No
     from repro_torch.distributed.sharding import decode_rules
     from repro_torch.launch.expert import report_of
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.sharded import assemble_logits, assemble_tick, sharded_collectives
+    from repro_torch.launch.sharded import assemble_logits, assemble_tick
 
     err = lambda a, c: float((a - c).abs().max())  # noqa: E731
     size = 4 if ccfg.compute_dtype == "float32" else 2
@@ -4256,9 +4390,9 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=No
     r0 = ranks[0]
     b, v = case["prefill"]["tokens"].shape[0], ccfg.vocab_size
     steps = [s for s in ("prefill", "loss") if s in case]
-    want = {s: sharded_collectives(ccfg, mesh, r0["rules"], *case[s]["tokens"].shape, size, size,
-                                   s, param_rules=r0["param_rules"],
-                                   s_max=case[s].get("s_max"))
+    want = {s: _formula(ccfg, mesh, r0["rules"], *case[s]["tokens"].shape, size, size,
+                        s, param_rules=r0["param_rules"],
+                        s_max=case[s].get("s_max"))
             for s in steps}
     for s, ops in want.items():
         if any(r[s]["ops"] != ops for r in ranks):
@@ -4335,8 +4469,8 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=No
         return out
     drules = decode_rules(Mesh(tuple(mesh), tuple(mesh.values())))
     bt = case["decode"][0]["tokens"].shape[0]
-    want = sharded_collectives(ccfg, mesh, drules, bt, 1, size, size, "decode",
-                               s_max=case["prefill"]["s_max"])
+    want = _formula(ccfg, mesh, drules, bt, 1, size, size, "decode",
+                    s_max=case["prefill"]["s_max"])
     if any(ops != want for r in ranks for ops in r["decode"][0]["ops"]):
         fails.append(f"(d) {label} decode: a rank's ops differ from the formula")
     n = len(r0["decode"][0]["ms"])
@@ -4370,14 +4504,13 @@ def _moe_serve_checks(ranks, case, ccfg, ref, key, label, fails, tag=None, k2=No
 def _moe_train_checks(ranks, case, c, refs, label, fails):
     """(a)/(c)/(d) of a train case against the one-rank step."""
     from repro_torch.launch.expert import report_of
-    from repro_torch.launch.sharded import sharded_collectives
 
     f32 = c.compute_dtype == "float32"
     size = 4 if f32 else 2
     r0 = ranks[0]
-    want = sharded_collectives(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
-                               *MOE["train"], size, size, "train", MOE["accum"],
-                               r0["param_rules"])
+    want = _formula(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
+                    *MOE["train"], size, size, "train", MOE["accum"],
+                    r0["param_rules"])
     if any(r["train"]["ops"] != want for r in ranks):
         fails.append(f"(d) {label}: a rank's train ops differ from the formula")
     loss_err = max(abs(r["train"]["loss"][0] - refs["loss"][0]) for r in ranks)
@@ -4661,12 +4794,12 @@ def _hybrid_long_checks(ranks, case, ccfg, ref, fails):
     from repro_torch.distributed.sharding import decode_rules
     from repro_torch.launch.expert import report_of
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.sharded import assemble_tick, sharded_collectives
+    from repro_torch.launch.sharded import assemble_tick
 
     err = lambda a, c: float((a - c).abs().max())  # noqa: E731
     spec, mesh = HYBRID["long"], dict(zip(("data", "model"), case["mesh"]))
-    want = sharded_collectives(ccfg, mesh, decode_rules(Mesh(tuple(mesh), tuple(mesh.values()))),
-                               spec["b"], 1, 2, 2, "decode", s_max=spec["s_max"])
+    want = _formula(ccfg, mesh, decode_rules(Mesh(tuple(mesh), tuple(mesh.values()))),
+                    spec["b"], 1, 2, 2, "decode", s_max=spec["s_max"])
     entries = [r["decode"][1] for r in ranks]
     if any(ops != want for e in entries for ops in e["ops"]):
         fails.append("(g) long ticks: a rank's ops differ from the formula")
@@ -4706,12 +4839,11 @@ def _hybrid_long_checks(ranks, case, ccfg, ref, fails):
 def _hybrid_grad_checks(ranks, case, c, ref, fails):
     """(f)/(g) of the gradient case against one rank's."""
     from repro_torch.launch.expert import report_of
-    from repro_torch.launch.sharded import sharded_collectives
 
     r0 = ranks[0]
-    want = sharded_collectives(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
-                               *case["grad"]["tokens"].shape, 2, 2, "train", 1,
-                               r0["param_rules"])
+    want = _formula(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
+                    *case["grad"]["tokens"].shape, 2, 2, "train", 1, r0["param_rules"],
+                    kind="grad")
     if any(r["grad"]["ops"] != want for r in ranks):
         fails.append("(g) grad: a rank's ops differ from the formula")
     one = ref["grad"]
@@ -5054,11 +5186,11 @@ def _encvlm_long_checks(ranks, case, c, ref, tag, label, fails):
     from repro_torch.distributed.sharding import decode_rules
     from repro_torch.launch.expert import report_of
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.sharded import assemble_tick, sharded_collectives
+    from repro_torch.launch.sharded import assemble_tick
 
     spec, mesh = ENCVLM["long"], dict(zip(("data", "model"), case["mesh"]))
-    want = sharded_collectives(c, mesh, decode_rules(Mesh(tuple(mesh), tuple(mesh.values()))),
-                               spec["b"], 1, 2, 2, "decode", s_max=spec["s_max"])
+    want = _formula(c, mesh, decode_rules(Mesh(tuple(mesh), tuple(mesh.values()))),
+                    spec["b"], 1, 2, 2, "decode", s_max=spec["s_max"])
     entries = [r["decode"][1] for r in ranks]
     if any(ops != want for e in entries for ops in e["ops"]):
         fails.append(f"(g) {label} decode_32k: a rank's ops differ from the formula")
@@ -5089,12 +5221,11 @@ def _encvlm_long_checks(ranks, case, c, ref, tag, label, fails):
 def _encvlm_train_checks(ranks, case, c, refs, tag, label, fails):
     """(c)/(f)/(g) of a train case against the one-rank step."""
     from repro_torch.launch.expert import report_of
-    from repro_torch.launch.sharded import sharded_collectives
 
     r0 = ranks[0]
-    want = sharded_collectives(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
-                               *case["train"]["tokens"].shape, 4, 4, "train", 1,
-                               r0["param_rules"])
+    want = _formula(c, dict(zip(("data", "model"), case["mesh"])), r0["rules"],
+                    *case["train"]["tokens"].shape, 4, 4, "train", 1,
+                    r0["param_rules"])
     if any(r["train"]["ops"] != want for r in ranks):
         fails.append(f"(g) {label}: a rank's train ops differ from the formula")
     loss_err = max(abs(r["train"]["loss"][0] - refs["loss"][0]) for r in ranks)
@@ -5278,40 +5409,116 @@ def _bytecode_cache():
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 
+# -- phase 19 ------------------------------------------------------------------
+
+# The port's five example scripts (examples/*_torch.py), in this process.
+EXAMPLE_SCHEDULERS = ("quickstart", "bass_cluster_demo", "failover_demo")
+
+
+def _example(name):
+    import importlib
+
+    path = os.path.join(HERE, "examples")
+    sys.path.insert(0, path)
+    try:
+        return importlib.import_module(f"{name}_torch")
+    finally:
+        sys.path.remove(path)
+
+
+def _example_run(fn):
+    """``fn()`` with its standard output captured → (its result, the
+    output, seconds, K1's launches over it)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, buf.getvalue(), secs, _counts()[0].get("launches", 0)
+
+
+def phase_examples():
+    """Phase 19: the five port examples on the card.  The three scheduler
+    scripts on ``cuda`` and then on ``numpy``: the same standard output,
+    K1 launched on ``cuda``; ``serve_batch_torch`` routes and finishes every
+    request; ``train_e2e_torch`` (its default arguments, checkpoints under
+    ``build/``, removed after) ends with a loss below its first."""
+    import shutil
+
+    from repro_torch.kernels import ts_plan
+
+    t0 = time.perf_counter()
+    out, fails = {}, []
+    for name in EXAMPLE_SCHEDULERS:
+        mod = _example(name)
+        runs = {b: _example_run(lambda b=b: mod.main(["--backend", b])) for b in BACKENDS}
+        cuda, ref = runs[BACKENDS[0]], runs[BACKENDS[-1]]
+        out[name] = dict(lines=len(cuda[1].splitlines()), identical=cuda[1] == ref[1],
+                         k1_launches=cuda[3], seconds={b: r[2] for b, r in runs.items()})
+        if cuda[1] != ref[1] or cuda[3] == 0:
+            fails.append(f"{name}: stdout identical {cuda[1] == ref[1]}, K1 {cuda[3]}")
+    ts_plan.set_backend("cuda")
+    serve = _example("serve_batch")
+    res, text, secs, k1 = _example_run(lambda: serve.main(serve.ARGV + ["--device", "cuda"]))
+    reqs = res["requests"]
+    routed = sum(line.startswith("req ") and " -> " in line for line in text.splitlines())
+    done = [len(r.tokens_out) == r.max_new for r in reqs]
+    out["serve_batch"] = dict(requests=len(reqs), routed=routed, finished=sum(done),
+                              seconds=secs, k1_launches=k1, tail=text.splitlines()[-1])
+    if not all(done) or routed != len(reqs) or text.count("finished on") != len(reqs):
+        fails.append(f"serve_batch: {sum(done)} of {len(reqs)} finished, {routed} routed")
+    train = _example("train_e2e")
+    ckdir = os.path.join(HERE, "build", "ckpt_e2e_torch")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = train.ARGV[:-1] + [ckdir, "--device", "cuda"]
+    try:
+        res, text, secs, k1 = _example_run(lambda: train.main(argv))
+        steps = sorted(os.listdir(ckdir))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    losses = [loss for _, loss in res["losses"]]
+    out["train_e2e"] = dict(losses=res["losses"], seconds=secs, k1_launches=k1,
+                            checkpoints=steps, tokens_s=res["tokens_s"])
+    if not losses[-1] < losses[0] or "step_000000300" not in steps or k1 == 0:
+        fails.append(f"train_e2e: losses {losses[0]} → {losses[-1]}, checkpoints {steps}, "
+                     f"K1 {k1}")
+    k1_total = sum(e["k1_launches"] for e in out.values())
+    log("examples", seconds=time.perf_counter() - t0, k1_launches=k1_total, **out)
+    if fails:
+        raise AssertionError(f"phase 19: {fails}")
+    return dict(out, k1_launches=k1_total)
+
+
 def main() -> int:
     _bytecode_cache()
     import torch
 
     if sys.argv[1:] == ["--kernel-times"]:
         return kernel_times()
-    if sys.argv[1:] == ["--sharded-train"]:
+    alone = {"--sharded-train": phase_sharded_train, "--sharded": phase_sharded,
+             "--sharded-ssm": phase_sharded_ssm, "--sharded-moe": phase_sharded_moe,
+             "--sharded-hybrid": phase_sharded_hybrid,
+             "--sharded-encdec-vlm": phase_sharded_encdec_vlm}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:
         phase_device()
-        phase_sharded_train(torch.cuda.mem_get_info()[0])
+        alone[sys.argv[1]](torch.cuda.mem_get_info()[0])
+        log("meta_rank_programs", **_meta_summary())
         return 0
-    if sys.argv[1:] == ["--sharded"]:
+    if sys.argv[1:] == ["--examples"]:
         phase_device()
-        phase_sharded(torch.cuda.mem_get_info()[0])
-        return 0
-    if sys.argv[1:] == ["--sharded-ssm"]:
-        phase_device()
-        phase_sharded_ssm(torch.cuda.mem_get_info()[0])
-        return 0
-    if sys.argv[1:] == ["--sharded-moe"]:
-        phase_device()
-        phase_sharded_moe(torch.cuda.mem_get_info()[0])
-        return 0
-    if sys.argv[1:] == ["--sharded-hybrid"]:
-        phase_device()
-        phase_sharded_hybrid(torch.cuda.mem_get_info()[0])
-        return 0
-    if sys.argv[1:] == ["--sharded-encdec-vlm"]:
-        phase_device()
-        phase_sharded_encdec_vlm(torch.cuda.mem_get_info()[0])
+        phase_examples()
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times | --sharded-train | --sharded "
                          "| --sharded-ssm | --sharded-moe | --sharded-hybrid "
-                         "| --sharded-encdec-vlm]")
+                         "| --sharded-encdec-vlm | --examples]")
     wall = {}
 
     def timed(phase, *args):
@@ -5322,6 +5529,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     name, smi = timed(phase_device)
+    _start_dryruns()     # phase 11's, on the host's cores beside phases 2–10
     timing = timed(phase_kernels)
     main_cuda = timed(phase_main_path)
     fail_cuda = timed(phase_failure, timing)
@@ -5340,6 +5548,8 @@ def main() -> int:
     sharded_moe = timed(phase_sharded_moe, free)
     sharded_hybrid = timed(phase_sharded_hybrid, free)
     sharded_encdec_vlm = timed(phase_sharded_encdec_vlm, free)
+    log("meta_rank_programs", **_meta_summary())
+    examples = timed(phase_examples)
     log("wall", phases_s=wall, total_s=time.perf_counter() - t_start)
     kernels = {"kernels": [{
         "name": "ts_plan_scan",
@@ -5354,6 +5564,8 @@ def main() -> int:
         "launches_fault_storm_path": sched["launches"]["fault_storm"],
         "launches_trainer_path": trainer["trainer"]["k1_launches"],
         "launches_epoch_placement": trainer["epoch"]["k1_launches"],
+        "launches_fault_storm_acceptance_path": sched["launches"]["fault_storm_acceptance"],
+        "launches_examples_path": examples["k1_launches"],
         "max_abs_err": timing["max_abs_err"],
         "checked": timing["checked"],
         "bitwise": True,

@@ -18,7 +18,14 @@ memory: a copy to pinned host memory, the collective there, a copy back
 three, the card synchronised before each copy is timed); gloo on a host
 tensor runs in place (``stats["direct"]``).  Both backends take
 ``all_gather_into_tensor``, the list form of ``reduce_scatter`` and
-``all_to_all_single``.
+``all_to_all_single``.  On a recording mesh (``launch/mesh.py::
+recording_mesh``) the group is a ``Recording`` marker: the collective
+returns an empty ``meta`` tensor of its result's shape and is counted as
+on real ranks, with no copy and no ``torch.distributed`` call.  Neither
+route stands in for the other: a marker given a tensor that is not on
+``meta`` raises, and so does a process group given a ``meta`` tensor.
+Each op counts as crossing pods (``Collective.crosses_pod``) where its
+group's axes include ``pod``.
 
 **Backward.**  Each collective is a ``torch.autograd.Function`` whose
 backward is its transpose over the same group, counted like a forward
@@ -57,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from ..launch.hlo_analysis import record_collective
+from ..launch.mesh import Recording
 from ..obs import default_registry
 
 stats = default_registry().group("collectives", ("direct", "host_staged"))
@@ -79,16 +87,27 @@ def recomputing():
 
 
 def _group(mesh, axes: Axes):
-    """(process group, size) over the axes of ``axes`` larger than 1, or
-    (None, 1) when there is none."""
+    """(process group, size, whether it spans ``pod``) over the axes of
+    ``axes`` larger than 1, or (None, 1, False) when there is none."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     axes = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
     if not axes:
-        return None, 1
+        return None, 1, False
     size = 1
     for a in axes:
         size *= mesh.shape[a]
-    return mesh.group(axes), size
+    return mesh.group(axes), size, "pod" in axes
+
+
+def _recorded(x: torch.Tensor, group) -> bool:
+    """Whether ``group`` is a recording marker; raises where the group and
+    ``x``'s device disagree (a marker with a tensor off ``meta``, a process
+    group with a ``meta`` tensor)."""
+    recorded = isinstance(group, Recording)
+    if recorded != (x.device.type == "meta"):
+        raise ValueError(f"a collective over {group} given a tensor on {x.device}: a "
+                         "recording mesh runs on meta tensors, a process group on no others")
+    return recorded
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -135,16 +154,21 @@ def _to_device(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _record(kind: str, out: torch.Tensor, size: int, path: str, backward: bool = False):
+def _record(kind: str, out: torch.Tensor, size: int, path: str, crosses_pod: bool,
+            backward: bool = False):
     if backward or _RECOMPUTING:
         path = f"{path}/bwd"
-    record_collective(kind, out.numel() * out.element_size(), size, path)
+    record_collective(kind, out.numel() * out.element_size(), size, path, crosses_pod)
 
 
 def _gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     """The blocks stacked ``[size, ...]`` by one ``all_gather_into_tensor``
     into one buffer (pinned where staged), laid along ``dim`` on ``x``'s
     device."""
+    if _recorded(x, group):
+        shape = list(x.shape)
+        shape[dim] *= size
+        return x.new_empty(shape)
     staged = _staged(x, group)
     src = _to_host(x, staged)
     out = _empty((size * x.shape[0],) + tuple(x.shape[1:]), src, staged)
@@ -154,12 +178,16 @@ def _gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
 
 
 def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    if _recorded(x, group):
+        return torch.empty_like(x)
     out = _to_host(x, _staged(x, group), copy=True)
     _run(dist.all_reduce, out, op=op, group=group)
     return _to_device(out, x)
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    if _recorded(x, group):
+        return torch.empty_like(x)
     staged = _staged(x, group)
     src = _to_host(x, staged)
     out = _empty(src.shape, src, staged)
@@ -171,6 +199,10 @@ def _scatter(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     """The blocks along ``dim`` stacked ``[size, ...]`` on ``x``'s device
     first, so the host holds one contiguous buffer (pinned where staged)
     whose rows are the list form's inputs."""
+    if _recorded(x, group):
+        shape = list(x.shape)
+        shape[dim] //= size
+        return x.new_empty(shape)
     staged = _staged(x, group)
     src = _to_host(x.unflatten(dim, (size, -1)).movedim(dim, 0), staged)
     out = _empty(src.shape[1:], src, staged)
@@ -180,57 +212,57 @@ def _scatter(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, dim, path):
-        ctx.args = (group, size, dim, path)
+    def forward(ctx, x, group, size, dim, path, pod):
+        ctx.args = (group, size, dim, path, pod)
         out = _gather(x, group, size, dim)
-        _record("all-gather", out, size, path)
+        _record("all-gather", out, size, path, pod)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        group, size, dim, path = ctx.args
+        group, size, dim, path, pod = ctx.args
         out = _scatter(g, group, size, dim)
-        _record("reduce-scatter", out, size, path, backward=True)
-        return out, None, None, None, None
+        _record("reduce-scatter", out, size, path, pod, backward=True)
+        return out, None, None, None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, dim, path):
-        ctx.args = (group, size, dim, path)
+    def forward(ctx, x, group, size, dim, path, pod):
+        ctx.args = (group, size, dim, path, pod)
         out = _scatter(x, group, size, dim)
-        _record("reduce-scatter", out, size, path)
+        _record("reduce-scatter", out, size, path, pod)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        group, size, dim, path = ctx.args
+        group, size, dim, path, pod = ctx.args
         out = _gather(g, group, size, dim)
-        _record("all-gather", out, size, path, backward=True)
-        return out, None, None, None, None
+        _record("all-gather", out, size, path, pod, backward=True)
+        return out, None, None, None, None, None
 
 
 class _Psum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, path):
-        ctx.args = (group, size, path)
+    def forward(ctx, x, group, size, path, pod):
+        ctx.args = (group, size, path, pod)
         out = _reduce(x, group)
-        _record("all-reduce", out, size, path)
+        _record("all-reduce", out, size, path, pod)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        group, size, path = ctx.args
+        group, size, path, pod = ctx.args
         out = _reduce(g, group)
-        _record("all-reduce", out, size, path, backward=True)
-        return out, None, None, None
+        _record("all-reduce", out, size, path, pod, backward=True)
+        return out, None, None, None, None
 
 
 class _Pmax(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, path):
+    def forward(ctx, x, group, size, path, pod):
         out = _reduce(x, group, dist.ReduceOp.MAX)
-        _record("all-reduce", out, size, path)
+        _record("all-reduce", out, size, path, pod)
         return out
 
     @staticmethod
@@ -240,18 +272,18 @@ class _Pmax(torch.autograd.Function):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, path):
-        ctx.args = (group, size, path)
+    def forward(ctx, x, group, size, path, pod):
+        ctx.args = (group, size, path, pod)
         out = _exchange(x, group)
-        _record("all-to-all", out, size, path)
+        _record("all-to-all", out, size, path, pod)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        group, size, path = ctx.args
+        group, size, path, pod = ctx.args
         out = _exchange(g, group)
-        _record("all-to-all", out, size, path, backward=True)
-        return out, None, None, None
+        _record("all-to-all", out, size, path, pod, backward=True)
+        return out, None, None, None, None
 
 
 class _Shares(torch.autograd.Function):
@@ -268,27 +300,27 @@ class _Shares(torch.autograd.Function):
 def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int, path: str = "") -> torch.Tensor:
     """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the group's
     blocks concatenated along ``dim`` in the order of their coordinates."""
-    group, size = _group(mesh, axes)
+    group, size, pod = _group(mesh, axes)
     if group is None:
         return x
-    return _AllGather.apply(x, group, size, dim, path)
+    return _AllGather.apply(x, group, size, dim, path, pod)
 
 
 def psum(x: torch.Tensor, mesh, axes: Axes, path: str = "") -> torch.Tensor:
     """``lax.psum(x, axes)``: the sum over the group, on every rank."""
-    group, size = _group(mesh, axes)
+    group, size, pod = _group(mesh, axes)
     if group is None:
         return x
-    return _Psum.apply(x, group, size, path)
+    return _Psum.apply(x, group, size, path, pod)
 
 
 def pmax(x: torch.Tensor, mesh, axes: Axes, path: str = "") -> torch.Tensor:
     """``lax.pmax(x, axes)``: the elementwise maximum over the group, on
     every rank (forward only)."""
-    group, size = _group(mesh, axes)
+    group, size, pod = _group(mesh, axes)
     if group is None:
         return x
-    return _Pmax.apply(x, group, size, path)
+    return _Pmax.apply(x, group, size, path, pod)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str, path: str = "") -> torch.Tensor:
@@ -296,24 +328,24 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, path: str = "") -> torch.Tensor
     of ``x [n, ...]`` over the ``n`` ranks of ``axis``: block ``j`` of the
     result is block ``i`` of rank ``j``'s ``x``, where ``i`` is this rank's
     coordinate."""
-    group, size = _group(mesh, axis)
+    group, size, pod = _group(mesh, axis)
     if group is None:
         return x
     if x.shape[0] != size:
         raise ValueError(f"all_to_all of {tuple(x.shape)} over {size} ranks")
-    return _AllToAll.apply(x, group, size, path)
+    return _AllToAll.apply(x, group, size, path, pod)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int, path: str = "") -> torch.Tensor:
     """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
     the sum over the group, cut into as many blocks along ``dim`` as the
     group has ranks; each rank keeps the block at its coordinate."""
-    group, size = _group(mesh, axes)
+    group, size, pod = _group(mesh, axes)
     if group is None:
         return x
     if x.shape[dim] % size:
         raise ValueError(f"reduce_scatter of {tuple(x.shape)} along {dim} over {size} ranks")
-    return _ReduceScatter.apply(x, group, size, dim, path)
+    return _ReduceScatter.apply(x, group, size, dim, path, pod)
 
 
 def seed_shares(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -17,10 +17,12 @@ helpers) is not carried: no torch program produces XLA's partitioned HLO.
 Its counterpart is :func:`counting_collectives`, a context in which every
 collective the port issues through ``distributed/collectives.py`` (the
 expert-parallel MoE block's and the reassembly of its output, and the
-sharded dense model's) adds one :class:`Collective` to a
-:class:`CollectiveReport`, under XLA's name for its kind (``all-gather``,
-``all-reduce``, ``reduce-scatter``, ``all-to-all``), with its group's size
-and its result's bytes.
+sharded model's, on real ranks or on a recording mesh's ``meta``
+tensors) adds one :class:`Collective` to a :class:`CollectiveReport`,
+under XLA's name for its kind (``all-gather``, ``all-reduce``,
+``reduce-scatter``, ``all-to-all``), with its group's size, its result's
+bytes and whether its group spans the ``pod`` axis (``crosses_pod``, the
+reference's replica-group test).
 
 Wire-byte model per participating device (ring algorithms):
   all-gather: R·(g−1)/g   all-reduce: 2·M·(g−1)/g   reduce-scatter: S·(g−1)
@@ -130,11 +132,16 @@ def counting_collectives() -> Iterator[CollectiveReport]:
         _reports.remove(report)
 
 
-def record_collective(kind: str, result_bytes: int, group: int, path: str) -> None:
-    """Count one collective in every active :func:`counting_collectives`."""
+def record_collective(kind: str, result_bytes: int, group: int, path: str,
+                      crosses_pod: bool = False) -> None:
+    """Count one collective in every active :func:`counting_collectives`;
+    ``crosses_pod``: its group spans the ``pod`` axis, so its wire bytes
+    go over the network between pods (the reference derives the same from
+    the replica groups)."""
     for report in _reports:
         report.ops.append(Collective(kind, int(result_bytes), group, 1,
-                                     _wire_bytes(kind, result_bytes, group), path))
+                                     _wire_bytes(kind, result_bytes, group), path,
+                                     crosses_pod))
 
 
 def _wire_bytes(kind: str, result_bytes: int, g: int) -> float:

@@ -10,6 +10,11 @@ row-major as ``jax.make_mesh`` lays out devices (rank ``di · n_model + mi``
 is ``(di, mi)`` of a ``("data", "model")`` mesh), and carries this rank's
 coordinates and a process group for every set of axes, over which the
 expert-parallel MoE block (``models/moe.py``) issues its collectives.
+A recording mesh (:func:`recording_mesh`) is a rank mesh with no process
+group: one rank's view of a mesh of any size, on ``meta``, whose groups
+are :class:`Recording` markers, so that one rank's sharded program runs
+on ``meta`` tensors and counts its collectives without issuing one
+(``distributed/collectives.py``; ``launch/dryrun.py::rank_program``).
 Kept as functions (never module-level constants), so importing this module
 touches no device state.
 """
@@ -59,6 +64,29 @@ class Mesh:
     def group(self, axes: Tuple[str, ...]):
         """This rank's process group over ``axes`` (their mesh order)."""
         return self.groups[tuple(a for a in self.axis_names if a in axes)]
+
+
+@dataclass(frozen=True)
+class Recording:
+    """The stand-in for a process group over ``axes`` on a recording mesh:
+    a collective over it returns a ``meta`` tensor of its result's shape,
+    and is counted, but issues nothing."""
+
+    axes: Tuple[str, ...]
+
+
+def recording_mesh(shape, axes, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``shape`` over ``axes`` (row-major,
+    as :func:`_make_mesh` lays out ranks), on ``meta``, with a
+    :class:`Recording` marker for every tuple of axes in place of a process
+    group.  Needs no ``torch.distributed``."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    size = mesh_device_count(Mesh(axes, shape))
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} of a mesh of {dict(zip(axes, shape))} ({size} ranks)")
+    groups = {sub: Recording(sub) for n in range(1, len(axes) + 1)
+              for sub in itertools.combinations(axes, n)}
+    return Mesh(axes, shape, (torch.device("meta"),), rank, groups)
 
 
 def _unravel(rank: int, sizes) -> Tuple[int, ...]:

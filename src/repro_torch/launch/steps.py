@@ -121,10 +121,12 @@ def make_prefill_step(model: Model, s_max: int):
     return prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, s_max=None):
+    """``s_max``: the attention caches' whole length, which a tick on a
+    rank mesh needs (``Model.decode``)."""
     @torch.no_grad()
     def serve_step(params, token, pos, caches):
-        return model.decode(params, token, pos, caches)
+        return model.decode(params, token, pos, caches, s_max)
 
     return serve_step
 

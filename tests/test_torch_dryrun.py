@@ -403,7 +403,13 @@ def test_cli_writes_an_ok_record_without_jax(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "1 ok, 0 failed" in res.stdout
     rec = json.loads((tmp_path / "whisper-base__decode_32k__pod256.json").read_text())
-    assert rec["ok"] and rec["collectives"] is None and rec["chip"] == "NVIDIA H100 80GB HBM3"
-    assert rec["roofline"]["chips"] == 256 and rec["roofline"]["dominant"] in ("compute", "memory")
+    assert rec["ok"] and rec["chip"] == "NVIDIA H100 80GB HBM3"
+    coll = rec["collectives"]
+    assert set(coll) == {"count", "by_kind_wire_bytes", "wire_bytes_ici", "wire_bytes_dcn"}
+    assert coll["count"] > 0 and coll["wire_bytes_ici"] > 0 and coll["wire_bytes_dcn"] == 0
+    assert rec["roofline"]["chips"] == 256
+    assert rec["roofline"]["wire_bytes_ici"] == coll["wire_bytes_ici"]
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert rec["accounting"]["flops_global"] > rec["accounting"]["model_flops"] > 0
-    assert "peak_gib" not in rec["memory"] and rec["memory"]["temp_gib_one_device"] > 0
+    mem = rec["memory"]
+    assert mem["peak_gib"] > mem["temp_gib"] > 0 and "temp_gib_one_device" not in mem
