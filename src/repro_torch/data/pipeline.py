@@ -23,6 +23,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.device import span
+
+#: A step's batch on the timeline (``obs``), keyed by the step.
+_BATCH = span("data.batch", device=False)
+
 
 @dataclass(frozen=True)
 class DataConfig:
@@ -67,21 +72,22 @@ class SyntheticLM:
         return np.concatenate([first, second]).astype(np.int32)
 
     def batch(self, step: int) -> Dict[str, np.ndarray]:
-        gb = self.cfg.global_batch
-        toks = np.stack([self.sample(0, step * gb + i) for i in range(gb)])
-        out: Dict[str, np.ndarray] = {"tokens": toks}
-        if self.cfg.family == "vlm" and self.cfg.n_vision_tokens:
-            rng = self._rng(1, step)
-            out["vision_embeds"] = rng.standard_normal(
-                (gb, self.cfg.n_vision_tokens, self.cfg.d_model), dtype=np.float32
-            )
-            out["tokens"] = toks[:, : self.cfg.seq_len - self.cfg.n_vision_tokens]
-        if self.cfg.family == "encdec":
-            rng = self._rng(2, step)
-            out["frames"] = rng.standard_normal(
-                (gb, self.cfg.enc_seq, self.cfg.d_model), dtype=np.float32
-            )
-        return out
+        with _BATCH(step):
+            gb = self.cfg.global_batch
+            toks = np.stack([self.sample(0, step * gb + i) for i in range(gb)])
+            out: Dict[str, np.ndarray] = {"tokens": toks}
+            if self.cfg.family == "vlm" and self.cfg.n_vision_tokens:
+                rng = self._rng(1, step)
+                out["vision_embeds"] = rng.standard_normal(
+                    (gb, self.cfg.n_vision_tokens, self.cfg.d_model), dtype=np.float32
+                )
+                out["tokens"] = toks[:, : self.cfg.seq_len - self.cfg.n_vision_tokens]
+            if self.cfg.family == "encdec":
+                rng = self._rng(2, step)
+                out["frames"] = rng.standard_normal(
+                    (gb, self.cfg.enc_seq, self.cfg.d_model), dtype=np.float32
+                )
+            return out
 
 
 class MemmapSource:

@@ -26,8 +26,6 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-from ..obs import default_registry
-
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # One flag set for every source.  ``--fmad=false``: K1 must not contract a
@@ -43,10 +41,6 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
-
-#: Per source: ``builds`` (nvcc runs) and ``cache_hits`` (a library already
-#: built for the same source and flags was loaded instead).
-counts = default_registry().group("kernel_build")
 
 #: Per source, after its library is loaded: the compiler output of its
 #: build (``-Xptxas -v``: registers and spills per kernel; empty on a cache
@@ -69,8 +63,6 @@ def register(name: str, signatures: dict, stats=None) -> None:
     whose ``traces`` and ``cache_hits`` cells then count this source's
     builds too."""
     _SOURCES[name] = (dict(signatures), stats)
-    for key in ("builds", "cache_hits"):
-        counts.setdefault(f"{name}.{key}", 0)
 
 
 def find_nvcc() -> str:
@@ -108,7 +100,6 @@ def _library_path(name: str) -> Path:
 
 
 def _count(name: str, key: str) -> None:
-    counts[f"{name}.{key}"] += 1
     stats = _SOURCES[name][1]
     if stats is not None:
         stats["traces" if key == "builds" else key] += 1

@@ -16,6 +16,11 @@ takes this rank's rows; the float32 accumulation buffer holds this rank's
 blocks.  After the last microbatch each leaf is summed over the axes it
 is held alike along (``actctx.sum_replicated``), and AdamW takes the
 whole tree's norm (``actctx.whole_sq_sums``) and updates the blocks.
+
+Spans on the timeline (``obs``): ``train.step`` keyed by the step
+function's call, in it ``train.forward`` and ``train.backward`` (the remat
+recompute with it) keyed by the microbatch, and ``train.optim``
+(``AdamW.update`` whole: the clip norm and the update).
 """
 from __future__ import annotations
 
@@ -26,7 +31,11 @@ import torch
 from ..distributed import actctx
 from ..models.model import Model
 from ..models.params import flatten, unflatten
+from ..obs.device import span
 from ..optim.adamw import AdamW, AdamWState
+
+_STEP, _FORWARD, _BACKWARD, _OPTIM = (
+    span(f"train.{part}") for part in ("step", "forward", "backward", "optim"))
 
 
 def make_train_step(
@@ -46,43 +55,49 @@ def make_train_step(
     holds one copy of each.
     """
 
-    def grad_fn(params, mb):
-        return _loss_and_grads(model, params, mb)
+    calls = 0
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
-        if accum <= 1:
-            loss, grads = grad_fn(params, batch)
-        else:
-            gsum, lsum = None, None
-            for i in range(accum):
-                mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, g = grad_fn(params, mb)
-                if gsum is None:
-                    gsum = {path: leaf.to(accum_dtype) for path, leaf in flatten(g)}
-                    lsum = l.float()
-                else:
-                    for path, leaf in flatten(g):
-                        gsum[path].add_(leaf)
-                    lsum = lsum + l
-                del g
-            grads = unflatten(list(gsum), [g.div_(accum) for g in gsum.values()])
-            loss = lsum / accum
+        nonlocal calls
+        calls += 1
+        with _STEP(calls - 1):
+            if accum <= 1:
+                loss, grads = _loss_and_grads(model, params, batch)
+            else:
+                gsum, lsum = None, None
+                for i in range(accum):
+                    mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    l, g = _loss_and_grads(model, params, mb, i)
+                    if gsum is None:
+                        gsum = {path: leaf.to(accum_dtype) for path, leaf in flatten(g)}
+                        lsum = l.float()
+                    else:
+                        for path, leaf in flatten(g):
+                            gsum[path].add_(leaf)
+                        lsum = lsum + l
+                    del g
+                grads = unflatten(list(gsum), [g.div_(accum) for g in gsum.values()])
+                loss = lsum / accum
 
-        grads, sq_total = _synced(model, grads)
-        new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params, sq_total, donate)
-        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+            grads, sq_total = _synced(model, grads)
+            with _OPTIM():
+                new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params,
+                                                              sq_total, donate)
+            return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 
 
-def _loss_and_grads(model: Model, params, batch):
+def _loss_and_grads(model: Model, params, batch, microbatch: int = 0):
     """(the loss, the gradient tree) of ``Model.loss`` at ``params``."""
     paths, leaves = zip(*flatten(params))
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, _metrics = model.loss(unflatten(paths, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        with _FORWARD(microbatch):
+            loss, _metrics = model.loss(unflatten(paths, leaves), batch)
+        with _BACKWARD(microbatch):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     return loss.detach(), unflatten(paths, grads)
 
 

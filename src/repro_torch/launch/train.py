@@ -185,6 +185,8 @@ def main(argv=None) -> dict:
             t_save = time.perf_counter()
             ckpt.save(step + 1, (params, opt_state))
             save_s.append(time.perf_counter() - t_save)
+    if device.type == "cuda":     # the steps' work done, not only enqueued
+        torch.cuda.synchronize(device)
     tokens_s = tokens_done / max(time.time() - t0, 1e-6)
     if ckpt is not None:
         t_save = time.perf_counter()

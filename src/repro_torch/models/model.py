@@ -90,6 +90,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..obs.device import span
 from . import encdec as ed
 from .layers import rms_norm, rope_tables, sinusoidal_positions
 from .params import (P, Tree, abstract_params, dtype_of, flatten, init_params, param_axes,
@@ -105,6 +106,10 @@ from .transformer import (
 #: The families whose decode tick keeps every ``d_model`` block in place
 #: where its batch does not split over ``data`` (``RankLayout.stationary``).
 STATIONARY_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+
+#: The model's spans on the timeline (``obs``): a prefill, a decode step,
+#: and the prefill's k/v padded to the caches' length.
+_PREFILL, _DECODE, _PAD = span("model.prefill"), span("model.decode"), span("prefill.pad")
 
 
 @dataclass(frozen=True)
@@ -348,18 +353,19 @@ class Model:
         self, params: Tree, batch: Dict[str, torch.Tensor], s_max: int
     ) -> Tuple[torch.Tensor, Tree]:
         """Full pass over the prompt → (logits at last position, caches)."""
-        lay = self._layout(batch)
-        x, _, states = self._forward(params, batch, lay, collect_state=True)
-        # one rank's encoder-decoder takes the head at every position, as the reference's does
-        last = x if lay is None and self.cfg.family == "encdec" else x[:, -1:]
-        if lay is not None and lay.seq_sharded:     # the last position's block is the last rank's
-            from ..distributed.collectives import all_gather
+        with _PREFILL():
+            lay = self._layout(batch)
+            x, _, states = self._forward(params, batch, lay, collect_state=True)
+            # one rank's encoder-decoder takes the head at every position, as the reference's does
+            last = x if lay is None and self.cfg.family == "encdec" else x[:, -1:]
+            if lay is not None and lay.seq_sharded:     # the last position's block: the last rank's
+                from ..distributed.collectives import all_gather
 
-            last = all_gather(last, lay.mesh, "model", 1, "prefill/last")[:, -1:]
-        logits = self._head(params, last, lay)[:, -1]
-        if lay is not None:
-            return logits, self._cache_blocks(params, states, s_max, lay)
-        return logits, self._pad_states(states, s_max)
+                last = all_gather(last, lay.mesh, "model", 1, "prefill/last")[:, -1:]
+            logits = self._head(params, last, lay)[:, -1]
+            if lay is not None:
+                return logits, self._cache_blocks(params, states, s_max, lay)
+            return logits, self._pad_states(states, s_max)
 
     def _cache_blocks(self, params: Tree, states: Tree, s_max: int, lay) -> Tree:
         """The sharded prefill's states → this rank's blocks of the caches
@@ -451,7 +457,8 @@ class Model:
             zeros = arr.new_zeros(arr.shape[:2] + (pad_len,) + arr.shape[3:])
             return torch.cat([arr, zeros], dim=2)
 
-        return _map_named(pad, states)
+        with _PAD():
+            return _map_named(pad, states)
 
     def decode(
         self,
@@ -468,28 +475,29 @@ class Model:
         must be this rank's block."""
         from ..distributed.actctx import active, rank_layout
 
-        cfg = self.cfg
-        lay = rank_layout(*token.shape, cfg.d_model)
-        if lay is not None:
-            if s_max is None and cfg.family != "ssm":
-                raise ValueError("a decode on a rank mesh needs the caches' length, s_max")
-            lay = self.cache_layout(lay, s_max or 0, active()[1])
-            blocks = {"k": (lay.kv_loc, "positions"), "h": (lay.di_loc, "channels"),
-                      "ek": (cfg.enc_seq, "positions")}
-            for path, leaf in flatten(caches):
-                if path[-1] in blocks and tuple(leaf.shape[1:3]) != (lay.b_loc,
-                                                                     blocks[path[-1]][0]):
-                    raise ValueError(f"caches {'/'.join(path)} {tuple(leaf.shape)} are not this "
-                                     f"rank's {lay.b_loc} rows and {blocks[path[-1]][0]} "
-                                     f"{blocks[path[-1]][1]}")
-            token = lay.rows(token)
-        x = self._embed(params, token, lay, start=int(pos))
-        if cfg.family == "encdec":
-            x, caches = ed.decode_step(params, x, int(pos), caches, cfg, lay)
-        else:
-            rope = self._rope(torch.tensor([int(pos)], device=x.device))
-            x, caches = apply_stack_decode(cfg, params["stack"], x, rope, caches, int(pos), lay)
-        return self._head(params, x, lay)[:, 0], caches
+        with _DECODE():
+            cfg = self.cfg
+            lay = rank_layout(*token.shape, cfg.d_model)
+            if lay is not None:
+                if s_max is None and cfg.family != "ssm":
+                    raise ValueError("a decode on a rank mesh needs the caches' length, s_max")
+                lay = self.cache_layout(lay, s_max or 0, active()[1])
+                blocks = {"k": (lay.kv_loc, "positions"), "h": (lay.di_loc, "channels"),
+                          "ek": (cfg.enc_seq, "positions")}
+                for path, leaf in flatten(caches):
+                    if path[-1] in blocks and tuple(leaf.shape[1:3]) != (lay.b_loc,
+                                                                         blocks[path[-1]][0]):
+                        raise ValueError(f"caches {'/'.join(path)} {tuple(leaf.shape)} are not "
+                                         f"this rank's {lay.b_loc} rows and {blocks[path[-1]][0]} "
+                                         f"{blocks[path[-1]][1]}")
+                token = lay.rows(token)
+            x = self._embed(params, token, lay, start=int(pos))
+            if cfg.family == "encdec":
+                x, caches = ed.decode_step(params, x, int(pos), caches, cfg, lay)
+            else:
+                rope = self._rope(torch.tensor([int(pos)], device=x.device))
+                x, caches = apply_stack_decode(cfg, params["stack"], x, rope, caches, int(pos), lay)
+            return self._head(params, x, lay)[:, 0], caches
 
 
 def _map_named(fn, tree):

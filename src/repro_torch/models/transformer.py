@@ -76,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..distributed.collectives import recomputing
+from ..obs.device import span
 from .attention import attn_defs, decode_attention, full_attention
 from .layers import mlp_block, mlp_defs, rms_norm
 from .moe import a2a_on_ranks, moe_block, moe_defs
@@ -83,6 +84,11 @@ from .params import P, Tree, tree_map_defs
 from .ssm import mamba_block, mamba_decode, mamba_defs
 
 Cache = Any
+
+#: A prefill layer's parts on the timeline (``obs``), keyed by the layer's
+#: index: each norm, the attention mixer without its norm, the ffn without
+#: its norm (MLP or MoE).
+_NORM, _ATTN, _MLP = (span(f"layer.{part}") for part in ("norm", "attn", "mlp"))
 
 
 # ---------------------------------------------------------------------------
@@ -163,16 +169,25 @@ def _stack_trees(trees) -> Tree:
 # Layer application (single layer, given its params)
 # ---------------------------------------------------------------------------
 
+def _part(sp, index):
+    """The entry of the layer's part ``sp`` keyed ``index``; none where
+    ``index`` is None."""
+    return nullcontext() if index is None else sp(index)
+
+
 def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: str,
-                      ffn: str, collect_state: bool, lay=None):
+                      ffn: str, collect_state: bool, lay=None, index=None):
     """→ (x, aux, state): the MoE balance term (float32, zero without an
     MoE), and the layer's cache contribution — attn: {"k","v"} over the S
     positions seen; mamba: {"conv","h"} final — or None.  ``lay``: the
-    layer on a rank mesh (module docstring)."""
+    layer on a rank mesh (module docstring); ``index``: the layer's, the
+    key of its spans (None: no spans)."""
     state = None
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    with _part(_NORM, index):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mixer == "attn":
-        y, (k, v) = full_attention(lp["attn"], h, cfg, rope, causal=True, lay=lay)
+        with _part(_ATTN, index):
+            y, (k, v) = full_attention(lp["attn"], h, cfg, rope, causal=True, lay=lay)
         if collect_state:
             state = {"k": k, "v": v}
     elif collect_state:
@@ -182,11 +197,13 @@ def _apply_layer_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, rope, mixer: 
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        if ffn == "moe":
-            y, aux = moe_block(lp["moe"], h, cfg, lay)
-        else:
-            y = mlp_block(lp["mlp"], h, cfg, lay)
+        with _part(_NORM, index):
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        with _part(_MLP, index):
+            if ffn == "moe":
+                y, aux = moe_block(lp["moe"], h, cfg, lay)
+            else:
+                y = mlp_block(lp["mlp"], h, cfg, lay)
         x = x + y
     return x, aux, state
 
@@ -242,16 +259,19 @@ def apply_stack_full(
     and grad enabled, each layer (each period of the hybrid stack) is
     checkpointed: its activations are recomputed in the backward pass
     instead of kept.  ``lay``: the stack on a rank mesh, each slot's
-    weights gathered just before it runs (module docstring)."""
+    weights gathered just before it runs (module docstring).  A pass that
+    collects state (a prefill) marks each layer's parts on the timeline
+    (``obs``)."""
     n_units, slots = _units(cfg)
 
-    def unit(up, x, aux):
+    def unit(up, x, aux, first=None):
         states = {}
-        for key, mixer, ffn in slots:
+        for si, (key, mixer, ffn) in enumerate(slots):
             lp = up if key is None else up[key]
             if lay is not None:
                 lp = gather_layer(cfg, lp, _one_layer_defs(cfg, mixer, ffn), lay, ffn)
-            x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state, lay)
+            x, a, st = _apply_layer_full(lp, x, cfg, rope, mixer, ffn, collect_state, lay,
+                                         None if first is None else first + si)
             del lp      # this slot's gathered weights, before the next slot's gather
             aux = aux + a
             states[key] = st
@@ -267,7 +287,7 @@ def apply_stack_full(
             x, aux, st = checkpoint(unit, up, x, aux, use_reentrant=False,
                                     context_fn=_remat_contexts)
         else:
-            x, aux, st = unit(up, x, aux)
+            x, aux, st = unit(up, x, aux, ui * len(slots) if collect_state else None)
         states.append(st)
     if not collect_state:
         return x, aux, None

@@ -31,11 +31,15 @@ from ..core.controller import BassPolicy, ClusterController
 from ..core.qos import TenantBook, TenantSpec
 from ..core.tasks import Assignment, Task
 from ..core.topology import Fabric, tpu_dcn_fabric
+from ..obs.device import span
 from .engine import Request
 
 #: Backlog surcharge (seconds) pricing an unreachable replica out of the
 #: minnow choice while it is partitioned from the fabric.
 _DEAD_BACKLOG_S = 1e15
+
+#: A routing decision on the timeline (``obs``), keyed by the request's rid.
+_ROUTE = span("router.route", device=False)
 
 
 @dataclass
@@ -154,135 +158,136 @@ class BassRouter:
 
     def route(self, req: Request, now: float = 0.0,
               tenant: Optional[str] = None) -> RouteDecision:
-        work_s = req.max_new * self.decode_s_per_token
-        tg = None
-        if tenant is not None:
-            if self.tenants is None:
-                raise ValueError(
-                    f"request tagged tenant={tenant!r} but the router was "
-                    "built without tenants"
+        with _ROUTE(req.rid):
+            work_s = req.max_new * self.decode_s_per_token
+            tg = None
+            if tenant is not None:
+                if self.tenants is None:
+                    raise ValueError(
+                        f"request tagged tenant={tenant!r} but the router was "
+                        "built without tenants"
+                    )
+                tg = self._tenant_stats(tenant)
+                if not self.tenants.admit(tenant, now):
+                    # Hard admission control: over-rate tenants are turned
+                    # away before any scheduling work or reservation happens.
+                    tg["rejected"] += 1
+                    self.stats["rejected"] += 1
+                    return RouteDecision(
+                        rid=req.rid,
+                        replica="",
+                        migrated_from=None,
+                        ready_at=float("inf"),
+                        slots=(),
+                        degraded=True,
+                        rejected=True,
+                    )
+                tg["admitted"] += 1
+            at = max(now, self.controller.now)
+            attempt = 0
+            while not any(self._alive(r) for r in self.replicas):
+                if attempt >= self.max_retries:
+                    # Degraded mode: every replica stayed unreachable through
+                    # the whole backoff window.  Commit nothing and surface a
+                    # non-routable decision instead of raising — parking a
+                    # request on a partitioned replica would strand it behind
+                    # the 1e15 s backlog surcharge, and propagating would turn
+                    # a transient failover window into a caller-visible crash.
+                    self.stats["degraded"] += 1
+                    return RouteDecision(
+                        rid=req.rid,
+                        replica=self._coldest(),
+                        migrated_from=None,
+                        ready_at=float("inf"),
+                        slots=(),
+                        degraded=True,
+                    )
+                attempt += 1
+                self.stats["retries"] += 1
+                # Advance sim time so queued recoveries (link_up/host_up events
+                # already on the controller heap) get a chance to fire.
+                at += self.retry_backoff_s * (2 ** (attempt - 1))
+                self.controller.run_until(at)
+            holders = [
+                r
+                for r in self.prefix_home.get(req.prefix_hash, [])
+                if r in self.replicas and self._alive(r)
+            ]
+            if (tenant is not None
+                    and self.tenants.lag(tenant) > self.fairness_slack_s + 1e-9):
+                # Weighted fairness: this tenant is past its fair share, so it
+                # loses the migration fast path — served data-local (coldest
+                # holder, or coldest replica on a cold prefix) with no new
+                # boundary reservation, leaving the fabric to tenants the
+                # fairness frontier still owes service.
+                node = (
+                    min(holders, key=lambda r: (self.backlog.get(r, 0.0), r))
+                    if holders
+                    else self._coldest()
                 )
-            tg = self._tenant_stats(tenant)
-            if not self.tenants.admit(tenant, now):
-                # Hard admission control: over-rate tenants are turned
-                # away before any scheduling work or reservation happens.
-                tg["rejected"] += 1
-                self.stats["rejected"] += 1
+                ready = at + self.backlog.get(node, 0.0)
+                self.backlog[node] = self.backlog.get(node, 0.0) + work_s
+                home = self.prefix_home.setdefault(req.prefix_hash, [])
+                if node not in home:
+                    home.append(node)
+                self.tenants.charge(tenant, work_s)
+                tg["pinned"] += 1
+                self.stats["pinned"] += 1
+                self.stats["routed"] += 1
                 return RouteDecision(
                     rid=req.rid,
-                    replica="",
+                    replica=node,
                     migrated_from=None,
-                    ready_at=float("inf"),
+                    ready_at=ready,
                     slots=(),
-                    degraded=True,
-                    rejected=True,
                 )
-            tg["admitted"] += 1
-        at = max(now, self.controller.now)
-        attempt = 0
-        while not any(self._alive(r) for r in self.replicas):
-            if attempt >= self.max_retries:
-                # Degraded mode: every replica stayed unreachable through
-                # the whole backoff window.  Commit nothing and surface a
-                # non-routable decision instead of raising — parking a
-                # request on a partitioned replica would strand it behind
-                # the 1e15 s backlog surcharge, and propagating would turn
-                # a transient failover window into a caller-visible crash.
-                self.stats["degraded"] += 1
-                return RouteDecision(
-                    rid=req.rid,
-                    replica=self._coldest(),
-                    migrated_from=None,
-                    ready_at=float("inf"),
-                    slots=(),
-                    degraded=True,
-                )
-            attempt += 1
-            self.stats["retries"] += 1
-            # Advance sim time so queued recoveries (link_up/host_up events
-            # already on the controller heap) get a chance to fire.
-            at += self.retry_backoff_s * (2 ** (attempt - 1))
-            self.controller.run_until(at)
-        holders = [
-            r
-            for r in self.prefix_home.get(req.prefix_hash, [])
-            if r in self.replicas and self._alive(r)
-        ]
-        if (tenant is not None
-                and self.tenants.lag(tenant) > self.fairness_slack_s + 1e-9):
-            # Weighted fairness: this tenant is past its fair share, so it
-            # loses the migration fast path — served data-local (coldest
-            # holder, or coldest replica on a cold prefix) with no new
-            # boundary reservation, leaving the fabric to tenants the
-            # fairness frontier still owes service.
-            node = (
-                min(holders, key=lambda r: (self.backlog.get(r, 0.0), r))
-                if holders
-                else self._coldest()
+            # Cold prefix: no usable holders — route to the coldest replica
+            # (Case 2-style single-holder task; the data is born there).
+            task = Task(
+                tid=req.rid,
+                size=len(req.prompt) * self.bytes_per_ctx_token,
+                compute=work_s,
+                replicas=tuple(holders) if holders else (self._coldest(),),
             )
-            ready = at + self.backlog.get(node, 0.0)
-            self.backlog[node] = self.backlog.get(node, 0.0) + work_s
-            home = self.prefix_home.setdefault(req.prefix_hash, [])
-            if node not in home:
-                home.append(node)
-            self.tenants.charge(tenant, work_s)
-            tg["pinned"] += 1
-            self.stats["pinned"] += 1
+            # ΥI_j = engine backlog (ProgressRate-style estimate), refreshed per
+            # request; the controller then places the request as a one-task job.
+            # Clamp against the controller clock: request timestamps from
+            # concurrent frontends may arrive slightly out of order.
+            # Unreachable replicas (dead NIC / partitioned) are priced out of the
+            # minnow choice instead of removed — recovery needs no rebuild.
+            at = max(at, self.controller.now)
+            self.controller.state.set_idle(
+                {
+                    r: at + self.backlog.get(r, 0.0)
+                    if self._alive(r)
+                    else at + _DEAD_BACKLOG_S
+                    for r in self.replicas
+                }
+            )
+            jid = self.controller.submit([task], at=at)
+            self.controller.run_until(at)
+            # The router is a long-lived service: drop the per-request record
+            # once read (the ledger keeps the reservations) or memory grows
+            # with total request count.
+            a = self.controller.jobs.pop(jid).assignments[0]
+            self.backlog[a.node] = self.backlog.get(a.node, 0.0) + work_s
+            self.prefix_home.setdefault(req.prefix_hash, [])
+            if a.node not in self.prefix_home[req.prefix_hash]:
+                self.prefix_home[req.prefix_hash].append(a.node)
             self.stats["routed"] += 1
+            if a.source is not None:
+                self.stats["migrated"] += 1
+            if tenant is not None:
+                self.tenants.charge(tenant, work_s)
+                if a.source is not None:
+                    tg["migrated"] += 1
             return RouteDecision(
                 rid=req.rid,
-                replica=node,
-                migrated_from=None,
-                ready_at=ready,
-                slots=(),
+                replica=a.node,
+                migrated_from=a.source,
+                ready_at=a.start,
+                slots=a.transfer.slots if a.transfer else (),
             )
-        # Cold prefix: no usable holders — route to the coldest replica
-        # (Case 2-style single-holder task; the data is born there).
-        task = Task(
-            tid=req.rid,
-            size=len(req.prompt) * self.bytes_per_ctx_token,
-            compute=work_s,
-            replicas=tuple(holders) if holders else (self._coldest(),),
-        )
-        # ΥI_j = engine backlog (ProgressRate-style estimate), refreshed per
-        # request; the controller then places the request as a one-task job.
-        # Clamp against the controller clock: request timestamps from
-        # concurrent frontends may arrive slightly out of order.
-        # Unreachable replicas (dead NIC / partitioned) are priced out of the
-        # minnow choice instead of removed — recovery needs no rebuild.
-        at = max(at, self.controller.now)
-        self.controller.state.set_idle(
-            {
-                r: at + self.backlog.get(r, 0.0)
-                if self._alive(r)
-                else at + _DEAD_BACKLOG_S
-                for r in self.replicas
-            }
-        )
-        jid = self.controller.submit([task], at=at)
-        self.controller.run_until(at)
-        # The router is a long-lived service: drop the per-request record
-        # once read (the ledger keeps the reservations) or memory grows
-        # with total request count.
-        a = self.controller.jobs.pop(jid).assignments[0]
-        self.backlog[a.node] = self.backlog.get(a.node, 0.0) + work_s
-        self.prefix_home.setdefault(req.prefix_hash, [])
-        if a.node not in self.prefix_home[req.prefix_hash]:
-            self.prefix_home[req.prefix_hash].append(a.node)
-        self.stats["routed"] += 1
-        if a.source is not None:
-            self.stats["migrated"] += 1
-        if tenant is not None:
-            self.tenants.charge(tenant, work_s)
-            if a.source is not None:
-                tg["migrated"] += 1
-        return RouteDecision(
-            rid=req.rid,
-            replica=a.node,
-            migrated_from=a.source,
-            ready_at=a.start,
-            slots=a.transfer.slots if a.transfer else (),
-        )
 
     def _coldest(self) -> str:
         live = [r for r in self.replicas if self._alive(r)] or self.replicas
