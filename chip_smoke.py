@@ -43,8 +43,13 @@ result lines are printed:
               parameters): two ``ServeEngine`` replicas behind a
               ``BassRouter`` serve 8 requests of 512 prompt tokens and 16
               new tokens, driven by ``launch/serve.py``'s ``drive``; K2
-              launches once per layer and prefill.  Then the kernel path
-              against the plain attention path: (a) full depth, bf16,
+              launches once per layer and prefill, the RMSNorm kernel
+              2 L + 1 times a prefill and a decode tick.  The RMSNorm kernel
+              against its plain version at the served prefill's and tick's
+              rows in bf16 (at most one bf16 step apart, ≥ 99.9 % equal),
+              timed beside it and its bound.  Then the kernel path
+              against the plain path (plain attention, norms through the
+              plain version): (a) full depth, bf16,
               last-position prefill logits; (b) full width, 4 layers, f32,
               16 greedy tokens identical.  One more prefill of the served
               shape is counted (``kernels/cost.py``, untimed) for phase 11.
@@ -313,7 +318,8 @@ full report goes to ``build/chip_smoke.json``.
     python3 chip_smoke.py --kernel-times
 
 builds the kernels and prints only K1's times (fleet shape, the failure
-leg's commonest and widest launch shapes) and K4's, as one JSON line (and
+leg's commonest and widest launch shapes), K4's and the RMSNorm kernel's
+(nemo's prefill rows), as one JSON line (and
 ``build/kernel_times.json``): copied into two trees, it compares their
 kernels in one call.
 
@@ -330,6 +336,7 @@ line only, and for 13–18 the ``meta`` rank programs' line).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -421,7 +428,7 @@ def phase_device():
 
     # Importing each kernel's module registers its source with _build.
     from repro_torch.kernels import _build, decode_attention, flash_attention  # noqa: F401
-    from repro_torch.kernels import mamba_scan, ts_plan_device  # noqa: F401
+    from repro_torch.kernels import mamba_scan, rms_norm, ts_plan_device  # noqa: F401
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke needs an H100")
@@ -718,14 +725,15 @@ def _k1_window_timing(cuda, probes):
 
 def _reset_counts():
     """Every kernel's launch count (and the scan's call counts) to 0."""
-    from repro_torch.kernels import (decode_attention, flash_attention, mamba_scan, ts_plan,
-                                     ts_plan_device)
+    from repro_torch.kernels import (decode_attention, flash_attention, mamba_scan, rms_norm,
+                                     ts_plan, ts_plan_device)
 
     ts_plan_device.stats.reset()
     ts_plan.calls.reset()
     flash_attention.stats.reset()
     decode_attention.stats.reset()
     mamba_scan.stats.reset()
+    rms_norm.stats.reset()
 
 
 def _counts():
@@ -1125,7 +1133,9 @@ SERVE = dict(arch="mistral-nemo-12b", replicas=2, slots=4, s_max=1024,
 # (a): last-position logits of one 512-token prefill at full depth in bf16,
 # on the kernel path and on the plain path, each held against the same
 # prefill computed in float32 throughout (the bf16 weights upcast layer by
-# layer).  The plain path rounds the scores and the probabilities to bf16,
+# layer).  The plain path and the float32 one normalise through the plain
+# version (``_plain_norm``), so neither shares the RMSNorm kernel with the
+# path they check.  The plain path rounds the scores and the probabilities to bf16,
 # as the reference's XLA path does; the kernel keeps the scores in float32
 # and rounds only the probabilities that enter P.V.  A
 # fault in the kernel shows as an error of the logits' own size; so the
@@ -1141,6 +1151,20 @@ def _prefill_logits(model, params, prompt, s_max, dev):
             params, {"tokens": torch.as_tensor(prompt[None, :], device=dev).long()}, s_max)
     del caches
     return logits[0].float()
+
+
+@contextlib.contextmanager
+def _plain_norm():
+    """The model's norms through the plain version, ``ref.rms_norm_ref``, in
+    place of the RMSNorm kernel (``layers.rms_norm`` calls ``ops.rms_norm``)."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.rms_norm
+    ops.rms_norm = ref.rms_norm_ref
+    try:
+        yield
+    finally:
+        ops.rms_norm = kernel
 
 
 def _head_params(cfg, params):
@@ -1222,7 +1246,8 @@ def phase_serve():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention, flash_attention, ts_plan, ts_plan_device
+    from repro_torch.kernels import (decode_attention, flash_attention, rms_norm, ts_plan,
+                                     ts_plan_device)
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.serve import drive, make_requests
     from repro_torch.launch.steps import make_prefill_step
@@ -1255,6 +1280,7 @@ def phase_serve():
     torch.cuda.synchronize()
     k1, calls = dict(ts_plan_device.stats), dict(ts_plan.calls)
     k2, k3 = flash_attention.stats["launches"], decode_attention.stats["launches"]
+    norms = rms_norm.stats["launches"]
     peak = torch.cuda.max_memory_allocated()
 
     prefills = len(out["prefill_s"])
@@ -1267,7 +1293,7 @@ def phase_serve():
         decode_ticks=len(out["tick_s"]),
         decode_tick_p50_ms=float(np.percentile(out["tick_s"], 50)) * 1e3,
         max_memory_allocated=peak, k2_launches=k2, k3_launches=k3,
-        k1_launches=k1["launches"], planner_calls=calls,
+        k1_launches=k1["launches"], rms_norm_launches=norms, planner_calls=calls,
         router=dict(router.stats))
     if not (all(r.done and len(r.tokens_out) == SERVE["max_new"] for r in reqs)
             and prefills == SERVE["requests"]):
@@ -1278,6 +1304,15 @@ def phase_serve():
     if k1["launches"] != planner_calls:
         raise AssertionError(f"K1 launched {k1['launches']} times for "
                              f"{planner_calls} planning scans")
+    if norms != (2 * cfg.n_layers + 1) * (prefills + run["decode_ticks"]):
+        raise AssertionError(f"the RMSNorm kernel launched {norms} times for {prefills} "
+                             f"prefills and {run['decode_ticks']} ticks of {cfg.n_layers} "
+                             "layers")
+    # The kernel at the served prefill's rows and a full tick's, against
+    # its plain version (raises past one bf16 step or under 99.9 % equal).
+    run["rms_norm"] = _norm_timing(cuda, np.random.default_rng(SEED),
+                                   [(SERVE["prompt_len"], cfg.d_model),
+                                    (SERVE["slots"], cfg.d_model)])
 
     # One more prefill of the served shape, counted (phase 11 holds the
     # count against meta and sets it beside the prefill p50).
@@ -1285,13 +1320,15 @@ def phase_serve():
     _count_step("serve_prefill", make_prefill_step(model, SERVE["s_max"]),
                 (params, {"tokens": torch.as_tensor(prompt[None, :], device=cuda).long()}),
                 cfg, ShapeSpec("serve_prefill", "prefill", SERVE["prompt_len"], 1),
-                run["prefill_p50_ms"] * 1e-3, kernel_regions={"flash_attention": cfg.n_layers})
+                run["prefill_p50_ms"] * 1e-3,
+                kernel_regions={"flash_attention": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1})
 
     # (a) full depth, bf16: kernel path and plain path against float32.
     lp = _prefill_logits(model, params, prompt, SERVE["s_max"], cuda)
-    lx = _prefill_logits(Model(cfg.with_(attn_impl="xla")), params, prompt,
-                         SERVE["s_max"], cuda)
-    l32 = _prefill_logits_f32(cfg, params, prompt, cuda)
+    with _plain_norm():
+        lx = _prefill_logits(Model(cfg.with_(attn_impl="xla")), params, prompt,
+                             SERVE["s_max"], cuda)
+        l32 = _prefill_logits_f32(cfg, params, prompt, cuda)
     err = lambda a, b: float((a - b).abs().max())  # noqa: E731
     check_a = dict(kernel_vs_f32=err(lp, l32), plain_vs_f32=err(lx, l32),
                    kernel_vs_plain=err(lp, lx), max_abs_logit=float(l32.abs().max()),
@@ -1394,6 +1431,50 @@ def _k4_timing(cuda, rng):
         library_ms=None, **_k4_bound(b, s, d_in, n), **probe)
 
 
+#: The RMSNorm kernel's timed rows: nemo's prefill at longdoc's mean prompt
+#: and its longest, a decode tick's 24 rows, internvl2-1b's width.
+NORM_SHAPES = [(3968, 5120), (8192, 5120), (24, 5120), (8192, 896)]
+
+
+def _norm_timing(cuda, rng, shapes=NORM_SHAPES):
+    """The RMSNorm kernel in bf16 at ``shapes`` (rows, width) beside the
+    plain version's chain, ``F.rms_norm`` (the yardstick; the port never
+    calls it) and its bound (x read and y written once, the weight once, at
+    the HBM rate), with the kernel's distance from the plain version in
+    bfloat16 steps; raises where that is more than one step, or fewer than
+    99.9 % of the elements are equal."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    def ordered(t):   # bf16 bits as integers in the order of the values
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)  # > 50 MB L2
+    out = {}
+    for rows, width in shapes:
+        x = torch.from_numpy(rng.standard_normal((rows, width), np.float32)).to(cuda, torch.bfloat16)
+        w = torch.from_numpy(1 + 0.1 * rng.standard_normal(width, np.float32)).to(
+            cuda, torch.bfloat16)
+        got, want = ops.rms_norm(x, w, 1e-5), ref.rms_norm_ref(x, w, 1e-5)
+        steps = (ordered(got) - ordered(want)).abs()
+        max_steps, equal_share = int(steps.max()), float((steps == 0).float().mean())
+        if not (max_steps <= 1 and equal_share >= 0.999):
+            raise AssertionError(f"the RMSNorm kernel at {rows} x {width}: {max_steps} bf16 "
+                                 f"steps from the plain version, {equal_share:.5f} equal")
+        nbytes = 2 * (2 * rows * width + width)
+        out[f"{rows}x{width}"] = dict(
+            ms=_time_ms(lambda: ops.rms_norm(x, w, 1e-5), flush=flush),
+            ms_l2_warm=_time_ms(lambda: ops.rms_norm(x, w, 1e-5)),
+            plain_ms=_time_ms(lambda: ref.rms_norm_ref(x, w, 1e-5), flush=flush),
+            library_ms=_time_ms(lambda: F.rms_norm(x, (width,), w, 1e-5), flush=flush),
+            bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes", bytes=nbytes,
+            max_steps=max_steps, equal_share=equal_share)
+    return out
+
+
 def _k4_bound(b, s, d_in, n):
     """K4's bound at ``[b, s, d_in]`` × ``[d_in, n]``: its inputs read and
     y written once at the HBM rate, or its float32 operations and its
@@ -1484,7 +1565,8 @@ def phase_train():
     _, check_b["profile_kernel"] = _profiled(lambda: make_eval_step(Model(cfg))(params, batch))
     _count_step("eval_k4", make_eval_step(Model(cfg)), (params, batch), cfg,
                 ShapeSpec("eval_k4", "prefill", TRAIN["seq"], TRAIN["batch"]),
-                check_b["profile_kernel"]["wall_s"], kernel_regions={"mamba_scan": cfg.n_layers})
+                check_b["profile_kernel"]["wall_s"],
+                kernel_regions={"mamba_scan": cfg.n_layers, "rms_norm": cfg.n_layers + 1})
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
     params32 = Model(cfg32).init(torch.Generator(device=cuda).manual_seed(SEED), cuda)
     l32 = {impl: float(make_eval_step(Model(cfg32.with_(ssm_impl=impl)))(params32, batch)["loss"])
@@ -5365,6 +5447,25 @@ def _attention_entry(name, t, launches, **extra):
     return entry
 
 
+def _norm_entry(serve):
+    """The RMSNorm kernel's entry of the kernel line: its launches on phase
+    6's serving path, its distance from the plain version and its times at
+    the served prefill's rows (and at a tick's, under ``shapes``)."""
+    shapes = serve["rms_norm"]
+    t = next(iter(shapes.values()))
+    return {"name": "rms_norm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rms_norm.cu",
+            "replaces": "src/repro/models/layers.py:13",
+            "launches": serve["rms_norm_launches"],
+            "launches_serve_path": serve["rms_norm_launches"],
+            "launches_note": "2 L + 1 a prefill and a decode tick; 0 in train steps "
+                             "(they record gradients) and under a stationary decode layout",
+            "max_steps_bf16": max(e["max_steps"] for e in shapes.values()),
+            "equal_share": min(e["equal_share"] for e in shapes.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shapes": shapes}
+
+
 def _k2_family_launches(models):
     """K2's launches on phase 9's serve paths, for the kernel line."""
     return {f"launches_{fam}_serve_path": models[fam]["run"]["k2_launches"]
@@ -5374,8 +5475,9 @@ def _k2_family_launches(models):
 def kernel_times() -> int:
     """``--kernel-times``: build, then time K1 (the window form at the fleet
     shape; the column form at the failure leg's commonest and widest launch
-    shapes, recorded on one ``cuda`` failure leg) and K4 at the model's
-    shape, and print them as one JSON line.  For comparing two trees'
+    shapes, recorded on one ``cuda`` failure leg), K4 at the model's shape
+    and the RMSNorm kernel at :data:`NORM_SHAPES`, and print them as one
+    JSON line.  For comparing two trees'
     kernels in one call: copy this script into each and run it there."""
     import torch
 
@@ -5387,7 +5489,8 @@ def kernel_times() -> int:
     gc.collect()
     out = dict(nvidia_smi=smi, probes=probes, k1_window=_k1_window_timing(cuda, probes),
                k1_columns=_k1_failure_timing(shapes, probes),
-               k4=_k4_timing(cuda, np.random.default_rng(SEED)))
+               k4=_k4_timing(cuda, np.random.default_rng(SEED)),
+               rms_norm=_norm_timing(cuda, np.random.default_rng(SEED)))
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "kernel_times.json"), "w") as fh:
         json.dump(dict(out, ptxas=REPORT["ptxas"]), fh, indent=1, default=float)
@@ -5628,7 +5731,7 @@ def main() -> int:
         "bound_ms": train["scan"]["bound_ms"],
         "bound_by": train["scan"]["bound_by"],
         "library_ms": None,
-    }]}
+    }, _norm_entry(serve)]}
     REPORT.update(kernels)
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -5,14 +5,14 @@ Submodules load lazily (PEP 562): ``ts_plan`` is imported by the numpy
 scheduling core on every controller start, and must not drag torch in —
 ``ts_plan_device`` (which imports torch at module scope) materializes only
 when a device backend is first used.  The model kernels (``ops``,
-``flash_attention``, ``decode_attention``, ``mamba_scan``, ``ref``) import
-torch too.
+``flash_attention``, ``decode_attention``, ``mamba_scan``, ``rms_norm``,
+``ref``) import torch too.
 """
 import importlib
 
 __all__ = [
-    "cost", "decode_attention", "flash_attention", "mamba_scan", "ops", "ref", "ts_plan",
-    "ts_plan_device",
+    "cost", "decode_attention", "flash_attention", "mamba_scan", "ops", "ref", "rms_norm",
+    "ts_plan", "ts_plan_device",
 ]
 
 

@@ -299,11 +299,12 @@ class CostCounter(TorchDispatchMode):
     def release(self) -> None:
         self._suspend -= 1
 
-    def add_region(self, name: str, flops: int, bytes_: int) -> None:
+    def add_region(self, name: str, flops: int, bytes_: int, transcendentals: int = 0) -> None:
         if self._suspend:
             return
         self.flops += int(flops)
         self.bytes += int(bytes_)
+        self.transcendentals += int(transcendentals)
         rec = self.regions.setdefault(name, [0, 0, 0])
         rec[0] += 1
         rec[1] += int(flops)
@@ -336,22 +337,23 @@ class _Region:
         return False
 
 
-def region(name: str, flops, bytes_):
-    """Count ``flops`` and ``bytes_`` under ``name`` in the active counter,
-    and suspend op counting inside (allocations are still tracked).  A
-    shared null context when no counter is active; inside another region
-    it adds nothing."""
+def region(name: str, flops, bytes_, transcendentals=0):
+    """Count ``flops``, ``bytes_`` and ``transcendentals`` under ``name`` in
+    the active counter, and suspend op counting inside (allocations are
+    still tracked).  A shared null context when no counter is active; inside
+    another region it adds nothing."""
     if not _ACTIVE:
         return _NULL
     counter = _ACTIVE[-1]
-    counter.add_region(name, flops, bytes_)
+    counter.add_region(name, flops, bytes_, transcendentals)
     return _Region(counter)
 
 
 def formula_region(name: str, formula, *args):
-    """:func:`region` of ``formula(*args)`` → (FLOPs, bytes), the formula
-    evaluated only when a counter is active, so that a kernel wrapper's
-    region costs next to nothing without one."""
+    """:func:`region` of ``formula(*args)`` → (FLOPs, bytes) or (FLOPs,
+    bytes, transcendentals), the formula evaluated only when a counter is
+    active, so that a kernel wrapper's region costs next to nothing without
+    one."""
     return region(name, *formula(*args)) if _ACTIVE else _NULL
 
 

@@ -16,7 +16,9 @@ kernel on the card, the plain version on the CPU, and on ``meta``
 tensors, where it returns an output of the right shape and runs nothing.  The attention formulas are
 what the counter gives for the plain versions (``ref.attention_ref``,
 ``ref.decode_ref``) on contiguous ``[B, H, S, hd]`` tensors of the same
-shapes; the scan's is ``hlo_analysis.ssm_scan_addendum``'s per layer.
+shapes; the scan's is ``hlo_analysis.ssm_scan_addendum``'s per layer;
+the norm's is what the counter gives for ``ref.rms_norm_ref``, the
+composition it replaces, transcendentals included.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from . import cost
 from .decode_attention import flash_decode_bhsd
 from .flash_attention import flash_attention_bhsd
 from .mamba_scan import mamba_scan_blocked
+from .rms_norm import rms_norm_rows
 
 
 def attention_cost(b: int, nq: int, nkv: int, sq: int, sk: int, hd: int,
@@ -136,3 +139,39 @@ def scan_cost(b: int, s: int, d_in: int, n: int, backward: bool = False):
     layer), twice that for the backward."""
     el = b * s * d_in * n * (2 if backward else 1)
     return 6 * el, 16 * el
+
+
+def norm_cost(n: int, width: int, dtype: torch.dtype, w_dtype: torch.dtype):
+    """→ (FLOPs, bytes, transcendentals) that :class:`cost.CostCounter`
+    counts for ``ref.rms_norm_ref`` on ``n`` elements of rows of ``width``:
+    the square, the mean, ``+ eps``, the rsqrt (a transcendental a row), two
+    multiplies in float32, and the casts of x up and back and of the weight
+    up where they are not float32."""
+    rows = n // width if width else 0
+    flops = 4 * n + 2 * rows
+    nbytes = 28 * n + 24 * rows + 4 * width
+    if dtype != torch.float32:
+        flops += 2 * n
+        nbytes += 2 * (dtype.itemsize + 4) * n
+    if w_dtype != torch.float32:
+        flops += width
+        nbytes += (w_dtype.itemsize + 4) * width
+    return flops, nbytes, rows
+
+
+def records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last dimension through the kernel (CUDA), its plain
+    version (CPU) or shapes alone (``meta``).  It has no backward: where
+    autograd would record through it (:func:`records`), it raises
+    (``layers.rms_norm`` keeps the composed ops there)."""
+    if records(x, weight):
+        raise RuntimeError("rms_norm: the kernel has no backward; call it where no "
+                           "gradient is recorded")
+    with cost.formula_region("rms_norm", norm_cost, x.numel(), x.shape[-1], x.dtype,
+                             weight.dtype):
+        return rms_norm_rows(x, weight, eps)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (the counterparts of
 ``repro/kernels/ref.py``'s oracles): K2 is held against
 :func:`attention_ref`, K3 against :func:`decode_ref`, K4 against
-:func:`mamba_scan_ref`.
+:func:`mamba_scan_ref`, the RMSNorm kernel against :func:`rms_norm_ref`
+(the composition ``models/layers.py::rms_norm`` keeps, op for op).
 
 The attention oracles compute in float32 and cast back to ``q.dtype``, and
 mask with ``NEG_INF = -1e30`` as the reference does (not ``-inf``).  The
@@ -26,6 +27,20 @@ import torch
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
+
+
+def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                 block=None) -> torch.Tensor:
+    """RMSNorm over the last dimension in float32, rounded once to x's dtype;
+    with ``block`` (a callable on the normed row, e.g. ``RankLayout.d_block``),
+    ``weight`` scales ``block``'s part of the row."""
+    dtype = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    if block is not None:
+        out = block(out)
+    return (out * weight.float()).to(dtype)
 
 
 def attention_ref(

@@ -19,20 +19,21 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels import ops, ref
 from .params import P
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, lay=None) -> torch.Tensor:
     """RMSNorm over the last dimension; with ``lay`` (a decode layout that
     keeps its ``d_model`` blocks in place, ``RankLayout.d_block``), this
-    rank's block of the whole ``x``'s norm, ``weight`` the block."""
-    dtype = x.dtype
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    if lay is not None:
-        out = lay.d_block(out)
-    return (out * weight.float()).to(dtype)
+    rank's block of the whole ``x``'s norm, ``weight`` the block.
+
+    Where no gradient is recorded and there is no ``lay`` (every prefill
+    and decode tick on one rank), one kernel does it (``ops.rms_norm``);
+    a train step's norms and a stationary layout's keep the composed ops."""
+    if lay is None and not ops.records(x, weight):
+        return ops.rms_norm(x, weight, eps)
+    return ref.rms_norm_ref(x, weight, eps, None if lay is None else lay.d_block)
 
 
 # ---------------------------------------------------------------------------

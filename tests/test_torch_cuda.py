@@ -3,7 +3,9 @@ PyTorch version on CPU copies of the same inputs, and the scheduling slice
 on the ``cuda`` backend against the numpy reference — bit for bit
 throughout.  K2, K3: against their plain versions, and a full-width serve.
 K4: against its plain version, its input checks, and a full-width eval
-step through it against the plain scan.
+step through it against the plain scan.  The RMSNorm kernel: against its
+plain version at the cells' shapes, on its scalar path, its refusals, and
+its launches in a prefill and a train step.
 
 Every test here needs a Hopper card and skips without one.  On a machine
 with one: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -11,6 +13,7 @@ with one: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 import numpy as np
 import pytest
 import torch
+from bf16_steps import bf16_steps
 
 from repro_torch.kernels import ts_plan, ts_plan_device
 
@@ -903,3 +906,121 @@ def test_a2a_block_on_four_ranks_of_the_card_matches_one_rank_gather(card):
     for (r,) in res:
         assert r["ops"] == want and r["route"]["host_staged"] > 0
         assert float((r["y"] - r0["y_gather"]).abs().max()) <= 1e-4
+
+
+# -- the RMSNorm kernel ----------------------------------------------------------------------
+
+NORM_CASES_CARD = [
+    # nemo's prefill rows (shortdoc's and longdoc's prompts, longdoc's mean),
+    # its decode ticks (24 and 32 slots), internvl2-1b's width, the q-norm's
+    # [B, S, H, hd]; then float32, and a weight of the other dtype.
+    ((2048, 5120), torch.bfloat16, torch.bfloat16),
+    ((3968, 5120), torch.bfloat16, torch.bfloat16),
+    ((8192, 5120), torch.bfloat16, torch.bfloat16),
+    ((24, 5120), torch.bfloat16, torch.bfloat16),
+    ((32, 5120), torch.bfloat16, torch.bfloat16),
+    ((8192, 896), torch.bfloat16, torch.bfloat16),
+    ((1, 2048, 32, 128), torch.bfloat16, torch.bfloat16),
+    ((3968, 5120), torch.float32, torch.float32),
+    ((8192, 896), torch.float32, torch.float32),
+    ((2, 64, 5120), torch.bfloat16, torch.float32),
+    ((7, 896), torch.float32, torch.bfloat16),
+    # rows past 2 048 packs: 8 a thread, the weight loaded after the sum
+    ((3, 20480), torch.bfloat16, torch.bfloat16),
+    ((5, 12288), torch.float32, torch.float32),
+]
+
+
+def _norm_inputs(rng, shape, dtype, w_dtype, dev):
+    x = _normal(rng, shape, dtype, dev)
+    w = (1 + 0.1 * _normal(rng, (shape[-1],), torch.float32, dev)).to(w_dtype)
+    return x, w
+
+
+def _assert_norm_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    if got.dtype == torch.bfloat16:   # one rounding; only the row sum's order differs
+        steps, equal = bf16_steps(got, want)
+        assert steps <= 1 and equal >= 0.999, (steps, equal)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", NORM_CASES_CARD, ids=str)
+def test_rms_norm_kernel_matches_plain(card, case):
+    from repro_torch.kernels import ops, ref, rms_norm
+
+    shape, dtype, w_dtype = case
+    x, w = _norm_inputs(np.random.default_rng(shape[-2]), shape, dtype, w_dtype, card)
+    launches = rms_norm.stats["launches"]
+    got = ops.rms_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rms_norm.stats["launches"] == launches + 1
+    _assert_norm_close(got, ref.rms_norm_ref(x, w, 1e-5))
+
+
+@pytest.mark.parametrize("width", [13, 100, 5121])
+def test_rms_norm_kernel_scalar_path(card, width):
+    """Widths that are not whole 16-byte packs, a base that is not 16-byte
+    aligned, and a strided x (copied first) take the kernel all the same."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(width)
+    x, w = _norm_inputs(rng, (37, width), torch.bfloat16, torch.bfloat16, card)
+    _assert_norm_close(ops.rms_norm(x, w, 1e-6), ref.rms_norm_ref(x, w, 1e-6))
+    xt = _normal(rng, (width, 24), torch.bfloat16, card).t()   # [24, width], strided
+    _assert_norm_close(ops.rms_norm(xt, w, 1e-6), ref.rms_norm_ref(xt, w, 1e-6))
+    flat, w = _norm_inputs(rng, (1 + 64 * 896,), torch.bfloat16, torch.bfloat16, card)
+    odd = flat[1:].view(64, 896)   # base 2 bytes past an aligned one
+    _assert_norm_close(ops.rms_norm(odd, w[:896], 1e-6), ref.rms_norm_ref(odd, w[:896], 1e-6))
+
+
+def test_rms_norm_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import ops
+
+    x = torch.zeros((4, 256), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.rms_norm(x, x[0], 1e-5)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="does not match"):
+        ops.rms_norm(x, x[0, :128], 1e-5)
+    with pytest.raises(ValueError, match="wider"):
+        ops.rms_norm(torch.zeros((1, 40000), device=card), torch.ones(40000, device=card), 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rms_norm(x, x[0].cpu(), 1e-5)
+
+
+def test_rms_norm_launches_in_a_prefill_and_not_in_a_train_step(card, monkeypatch):
+    """One dense prefill normalises through the kernel 2 L + 1 times (two
+    norms a layer and the head's), its logits close to those of the same
+    prefill through the plain chain; one train step records gradients and
+    launches none."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref, rms_norm
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("mistral-nemo-12b", smoke=True).with_(
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=128, n_layers=3)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 256))
+    batch = {"tokens": torch.as_tensor(toks, device=card)}
+    before = rms_norm.stats["launches"]
+    with torch.no_grad():
+        logits, _ = model.prefill(params, batch, 512)
+    torch.cuda.synchronize()
+    assert rms_norm.stats["launches"] - before == 2 * cfg.n_layers + 1
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(ops, "rms_norm", ref.rms_norm_ref)
+        plain, _ = model.prefill(params, batch, 512)
+    assert float((logits.float() - plain.float()).abs().max()) <= 0.05 * float(
+        plain.float().abs().max())
+
+    opt = AdamW()
+    state = opt.init(params)
+    before = rms_norm.stats["launches"]
+    make_train_step(model, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    assert rms_norm.stats["launches"] == before
